@@ -1,0 +1,76 @@
+"""On-device batched augmentation (``dct_tpu/data/augment.py``).
+
+Per sample, independently with p=0.5 each: vertical flip, horizontal mirror,
+rotation U(−45°, 45°), and a crop of scale U(0.85, 0.95) at a uniform
+position. All four compose into one affine matrix per sample, executed as
+one gather per image (``ops/warp.py``). The draws come from an explicit
+``torch.Generator``, so they follow dct_tpu's distribution, not its bits;
+tests inject dct_tpu's thetas to compare the warps.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..ops.warp import affine_warp
+
+
+def sample_aug_thetas(generator: torch.Generator, n: int, height: int,
+                      width: int) -> torch.Tensor:
+    """Per-sample (n,2,3) affine matrices on the generator's device."""
+    dev = generator.device
+
+    def uniform(lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(n, generator=generator, device=dev)
+
+    flip_ud = uniform() < 0.5
+    flip_lr = uniform() < 0.5
+    do_rot = uniform() < 0.5
+    angle = torch.where(do_rot, uniform(-45.0, 45.0), 0.0)
+    do_crop = uniform() < 0.5
+    crop = torch.where(do_crop, uniform(0.85, 0.95), 1.0)
+    off_y = torch.where(do_crop, (uniform() - 0.5) * (1.0 - crop) * height, 0.0)
+    off_x = torch.where(do_crop, (uniform() - 0.5) * (1.0 - crop) * width, 0.0)
+
+    rad = torch.deg2rad(angle)
+    c, s = torch.cos(rad), torch.sin(rad)
+    rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+    zero = torch.zeros_like(c)
+    flips = torch.stack([
+        torch.stack([torch.where(flip_ud, -1.0, 1.0), zero], -1),
+        torch.stack([zero, torch.where(flip_lr, -1.0, 1.0)], -1)], -2)
+    # composition: output→input = Flip ∘ Rotate ∘ CropZoom
+    fr = flips @ rot
+    lin = fr * crop[:, None, None]
+    t = fr @ torch.stack([off_y, off_x], -1)[..., None]
+    return torch.cat([lin, t], dim=2)
+
+
+def augment_batch_with_thetas(img: torch.Tensor, gt: torch.Tensor,
+                              thetas: torch.Tensor, fast: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Jointly warp (B,H,W[,1]) float images and (B,H,W) int labels by the
+    given (B,2,3) thetas. ``fast`` warps both nearest in one pass; otherwise
+    the image is warped bilinearly and the labels nearest."""
+    squeeze_c = img.dim() == 4
+    im = img[..., 0] if squeeze_c else img
+    if fast:
+        stacked = torch.stack([im, gt.to(im.dtype)], dim=-1)      # (B,H,W,2)
+        out = affine_warp(stacked, thetas, "nearest", 0.0)
+        im_a, gt_a = out[..., 0], out[..., 1].to(gt.dtype)
+    else:
+        im_a = affine_warp(im, thetas, "bilinear", 0.0)
+        gt_a = affine_warp(gt.float(), thetas, "nearest", 0.0).to(gt.dtype)
+    if squeeze_c:
+        im_a = im_a[..., None]
+    return im_a, gt_a
+
+
+def warp_gathered_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
+                     thetas: torch.Tensor, dtype=torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalise a gathered uint8 (B,H,W) img+gt pair to float first, then
+    nearest-warp the pair → ((B,H,W,1) image in [0,1], (B,H,W) int64 labels)."""
+    img = img_u8.to(dtype)[..., None] / 255.0
+    return augment_batch_with_thetas(img, gt_u8.long(), thetas)

@@ -1,0 +1,98 @@
+"""Shared building blocks with dct_tpu's semantics (``dct_tpu/models/layers.py``).
+
+Activations are NCHW tensors in ``torch.channels_last`` memory format. Every
+layer casts its parameters to the activation's dtype at use, as
+``Segmentator`` in dct_tpu casts parameters to its compute dtype, so one set
+of fp32 parameters serves fp32 and bf16 forwards.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.9   # flax convention: new = m·old + (1 − m)·batch
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU, ``where(x >= 0, x, α·x)``, α initialised to 0.25."""
+
+    def __init__(self, channels: int) -> None:
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        alpha = self.alpha.to(x.dtype)[None, :, None, None]
+        return torch.where(x >= 0, x, alpha * x)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d with flax's semantics (eps 1e-3, momentum 0.9).
+
+    Train mode normalises with the batch statistics in one stock
+    ``native_batch_norm`` pass (statistics in fp32 whatever the activation
+    dtype) and folds the *biased* batch variance, recovered from the saved
+    inverse std, into the running variance — torch's ``nn.BatchNorm2d`` folds
+    the unbiased one. Running statistics stay fp32 whatever the activation
+    dtype; the output takes the input's dtype."""
+
+    def __init__(self, channels: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM) -> None:
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wdt = torch.promote_types(x.dtype, torch.float32)
+        weight, bias = self.weight.to(wdt), self.bias.to(wdt)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean.to(wdt),
+                                self.running_var.to(wdt), weight, bias,
+                                False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(x, weight, bias, None, None,
+                                                  True, 0.0, self.eps)
+        with torch.no_grad():     # running = m·running + (1 − m)·batch
+            var = invstd.pow(-2) - self.eps
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), 1 - self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), 1 - self.momentum)
+        return y
+
+
+@torch.no_grad()
+def init_weights_(net: nn.Module, generator: torch.Generator) -> None:
+    """dct_tpu's init: xavier-normal conv kernels, zero conv biases, BN scale
+    drawn from N(1, 0.02), zero BN bias, PReLU α 0.25. Draws follow
+    ``net.modules()`` order from ``generator``."""
+    for mod in net.modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.xavier_normal_(mod.weight, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.normal_(1.0, 0.02, generator=generator)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+        elif isinstance(mod, PReLU):
+            mod.alpha.fill_(0.25)

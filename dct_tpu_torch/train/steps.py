@@ -1,0 +1,150 @@
+"""The K-model co-training epoch (``dct_tpu/train/steps.py:make_cotrain_epoch``,
+unfused forward).
+
+One iteration, in dct_tpu's order:
+
+1. gather the K labeled batches and the shared unlabeled batch from the
+   device-resident uint8 dataset, normalise, and warp each image with its
+   own affine theta (one merged gather + warp over all K·B+Bu images, the
+   thetas ordered as dct_tpu orders them: K labeled streams, then the
+   unlabeled one);
+2. forward each model on its labeled batch → supervised loss per model;
+3. forward each model on the unlabeled batch → JSD across models;
+4. FGSM: model b's gradient with respect to its *input only*
+   (``torch.autograd.grad``; no parameter gradient) on its labeled batch
+   concatenated with the unlabeled one — the unlabeled rows labeled with
+   b's own argmax — steps the input by ε·sign; model a forwards the result,
+   scored by KL against b's detached prediction;
+5. backpropagate sup + λ_cot·JSD + λ_adv·KL once and step each model's Adam.
+
+All forwards run BatchNorm in train mode, so running statistics update in
+dct_tpu's order: labeled per model, unlabeled, FGSM generation on model b,
+adversarial forward on model a. For K=2 the pair is always (a, b) = (0, 1).
+Per-iteration metrics stay on the device and are stacked once per epoch.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.augment import augment_batch_with_thetas, sample_aug_thetas
+from ..data.pipeline import normalize_gather
+from ..losses import jsd_2d, kl_div_2d
+from ..models.segmentator import Segmentator
+from ..optim import set_lr
+from ..utils.general import class2one_hot, dice_coef, probs2one_hot
+
+
+def _dice_rows(logits: torch.Tensor, gt: torch.Tensor, C: int) -> torch.Tensor:
+    """(B,C) hard 2D dice rows, on the device."""
+    pred_oh = probs2one_hot(torch.softmax(logits, dim=-1))
+    return dice_coef(class2one_hot(gt, C), pred_oh)
+
+
+def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
+                       sup_loss: Callable, train_jsd: bool, train_adv: bool,
+                       augment_labeled: bool, augment_unlabeled: bool,
+                       eps_fgsm: float = 0.03) -> Callable:
+    """Build the co-training epoch over the K models ``segs``.
+
+    ``epoch(img_u8, gt_u8, idx_lab (T,K,B), idx_unlab (T,Bu), pairs (T,2)
+    or None, generator, lr, lam_cot, lam_adv, thetas=None)`` trains the
+    models in place and returns the metrics {sup_loss (T,K), jsd_loss (T,),
+    adv_loss (T,), lab_dice (T,K,B,C), unlab_dice (T,K,Bu,C)} as tensors on
+    the device. ``pairs`` (host ints) picks (a, b) per iteration for K>2.
+    ``thetas`` (T, K·B+Bu, 2, 3), when given, replaces the augmentation
+    draws from ``generator``.
+    """
+    K = len(segs)
+
+    def fgsm_generate(seg_b: Segmentator, img_cat: torch.Tensor,
+                      gt_b: torch.Tensor):
+        x = img_cat.detach().requires_grad_(True)
+        logits = seg_b.apply_train(x)
+        pseudo = torch.argmax(logits[gt_b.shape[0]:].detach(), dim=-1)
+        loss = sup_loss(logits, torch.cat([gt_b, pseudo], dim=0))
+        (g,) = torch.autograd.grad(loss, [x])
+        adv_img = (img_cat + eps_fgsm * torch.sign(g)).detach()
+        real_probs = torch.softmax(logits.detach(), dim=-1)
+        return adv_img, real_probs
+
+    def one_step(img_u8, gt_u8, idx_l, idx_u, pair, generator, lam_cot,
+                 lam_adv, th) -> Dict[str, torch.Tensor]:
+        B, Bu = idx_l.shape[1], idx_u.shape[0]
+        img_all, gt_all = normalize_gather(
+            img_u8, gt_u8, torch.cat([idx_l.reshape(-1), idx_u]))
+        if augment_labeled or augment_unlabeled:
+            if th is None:
+                th = sample_aug_thetas(generator, K * B + Bu, img_u8.shape[1],
+                                       img_u8.shape[2])
+            rows = slice(0 if augment_labeled else K * B,
+                         None if augment_unlabeled else K * B)
+            img_all[rows], gt_all[rows] = augment_batch_with_thetas(
+                img_all[rows], gt_all[rows], th[rows].to(img_all.device))
+        lab_img = img_all[:K * B].reshape((K, B) + img_all.shape[1:])
+        lab_gt = gt_all[:K * B].reshape((K, B) + gt_all.shape[1:])
+        unlab_img, unlab_gt = img_all[K * B:], gt_all[K * B:]
+
+        # (1) supervised, per model on its own labeled batch
+        lab_logits = [segs[k].apply_train(lab_img[k]) for k in range(K)]
+        sup_each = torch.stack([sup_loss(lab_logits[k], lab_gt[k])
+                                for k in range(K)])
+        total = sup_each.sum()
+
+        zero = torch.zeros((), device=img_all.device)
+        jsd_loss, adv_loss, unlab_logits = zero, zero, None
+        if train_jsd:
+            # (2) JSD across models on the shared unlabeled batch
+            unlab_logits = [s.apply_train(unlab_img) for s in segs]
+            probs = torch.stack([torch.softmax(lg, dim=-1) for lg in unlab_logits])
+            jsd_loss = jsd_2d(probs).mean()
+            total = total + lam_cot * jsd_loss
+        if train_adv:
+            # (3) FGSM diversity: attack model b, feed the result to model a
+            a, b = (0, 1) if K == 2 else (int(pair[0]), int(pair[1]))
+            adv_img, real_probs = fgsm_generate(
+                segs[b], torch.cat([lab_img[b], unlab_img], dim=0), lab_gt[b])
+            adv_probs = torch.softmax(segs[a].apply_train(adv_img), dim=-1)
+            adv_loss = kl_div_2d(adv_probs, real_probs).mean()
+            total = total + lam_adv * adv_loss
+
+        for s in segs:
+            s.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        for s in segs:
+            s.optimizer.step()
+
+        lab_dice = torch.stack([_dice_rows(lab_logits[k].detach(), lab_gt[k], C)
+                                for k in range(K)])
+        if unlab_logits is not None:
+            unlab_dice = torch.stack([_dice_rows(lg.detach(), unlab_gt, C)
+                                      for lg in unlab_logits])
+        else:
+            unlab_dice = torch.zeros((K, Bu, C), device=img_all.device)
+        return {"sup_loss": sup_each.detach(), "jsd_loss": jsd_loss.detach(),
+                "adv_loss": adv_loss.detach(), "lab_dice": lab_dice,
+                "unlab_dice": unlab_dice}
+
+    def epoch(img_u8: torch.Tensor, gt_u8: torch.Tensor, idx_lab, idx_unlab,
+              pairs, generator: Optional[torch.Generator], lr: float,
+              lam_cot: float, lam_adv: float,
+              thetas: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        dev = img_u8.device
+        idx_lab = torch.as_tensor(np.asarray(idx_lab), device=dev).long()
+        idx_unlab = torch.as_tensor(np.asarray(idx_unlab), device=dev).long()
+        if idx_lab.shape[1] != K:
+            raise ValueError(f"idx_lab must be (T, K={K}, B), got {tuple(idx_lab.shape)}")
+        if train_adv and K > 2 and pairs is None:
+            raise ValueError("K > 2 needs the per-iteration pairs")
+        for s in segs:
+            set_lr(s.optimizer, lr)
+        steps = [one_step(img_u8, gt_u8, idx_lab[t], idx_unlab[t],
+                          None if pairs is None else pairs[t], generator,
+                          lam_cot, lam_adv,
+                          None if thetas is None else thetas[t])
+                 for t in range(idx_lab.shape[0])]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    return epoch
