@@ -10,8 +10,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. Each of the four CUDA kernels at the shapes ENet's main path gives it
    (8 images at 256²), in fp32 and bf16, held bit-equal to its plain PyTorch
    version on tie-dense integer-valued inputs, with one NaN window in the
-   forwards; then timed with CUDA events beside its byte bound and one
-   PyTorch library call that computes the same function.
+   forwards; the pool pair also at ragged shapes (spans off 16 bytes, odd
+   w·c) and from a pointer off 16 bytes, which run the kernels' scalar
+   edge path, at 4096 channels (over 48 KB of shared memory a block in
+   fp32) and at more row pairs than a grid has rows. Then each is timed
+   with CUDA events beside its byte bound,
+   one PyTorch library call that computes the same function and a
+   ``copy_`` that moves as many bytes; a near-empty kernel is timed the
+   same way: the launch floor.
 3. Two full-width ENets (4 classes) take 3 co-training iterations in fp32
    (jsd, adv, augmentation on; TF32 off) on a synthetic 1674×256×256 uint8
    dataset; losses must be finite and the kernel counters must show 24
@@ -45,6 +51,12 @@ POOL_SHAPES = [((N_IMG, 128, 128, 14), "bottleneck_1_0"),
                ((N_IMG, 64, 64, 64), "bottleneck_2_0")]
 UNPOOL_SHAPES = [((N_IMG, 32, 32, 64), "bottleneck_4_0"),
                  ((N_IMG, 64, 64, 14), "bottleneck_5_0")]
+# pool inputs whose spans are not whole 16-byte vectors (w·c odd in the
+# fourth; the fifth runs channel pairs with a head and a tail); one pooled
+# column of 4096 channels (over 48 KB of shared memory a block in fp32);
+# 65,538 row pairs, more than a grid has rows
+RAGGED_POOL_SHAPES = [(1, 2, 2, 1), (3, 6, 10, 3), (2, 130, 34, 14), (2, 6, 14, 5),
+                      (2, 6, 10, 4), (1, 2, 4, 4096), (2, 65538, 4, 2)]
 REPLACES = {
     "pool_mask_fwd": "dct_tpu/ops/pallas_pool.py:52 (max_pool_2x2_with_mask_pallas, pallas_call :61)",
     "pool_mask_bwd": "dct_tpu/ops/pallas_pool.py:52 (autodiff of max_pool_2x2_with_mask_pallas)",
@@ -98,6 +110,36 @@ def device_ms(fn, arg_sets, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_pool_exact(torch, pk, plain, ints, shape, dtype, errs,
+                     offset=0) -> None:
+    """pool_mask_fwd (with and without a NaN window) and pool_mask_bwd
+    bit-equal to the plain versions on one tie-dense input. ``offset``
+    elements in front of x in its buffer move its pointer off 16 bytes."""
+    n, hh, ww, c = shape
+    buf = ints((offset + math.prod(shape),), 0, 4, dtype)   # dense in ties
+    x = buf[offset:].view(shape)
+    x_nan = buf.clone()[offset:].view(shape)
+    x_nan[0, 0, 1, 0] = float("nan")
+    what = f"{shape} {dtype}" + (f" at offset {offset}" if offset else "")
+    for xx in (x, x_nan):
+        pk_out = pk.max_pool_2x2_with_mask_kernel(xx)
+        pl_out = plain.max_pool_2x2_with_mask(xx)
+        for a, b in zip(pk_out, pl_out):
+            if not same(a, b):
+                raise AssertionError(f"pool_mask_fwd {what} differs")
+            errs["pool_mask_fwd"] = max(errs["pool_mask_fwd"], max_abs_err(a, b))
+    if float(pk_out[1][0, 1, 1, 0]) != 1.0:
+        raise AssertionError("a NaN window must set its mask at (1,1)")
+    g = ints((n, hh // 2, ww // 2, c), -3, 4, dtype)
+    grads = []
+    for fn in (pk.max_pool_2x2_with_mask_kernel, plain.max_pool_2x2_with_mask):
+        xr = buf.clone()[offset:].view(shape).requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xr)[0], xr, g)[0])
+    if not same(*grads):
+        raise AssertionError(f"pool_mask_bwd {what} differs")
+    errs["pool_mask_bwd"] = max(errs["pool_mask_bwd"], max_abs_err(*grads))
+
+
 def check_kernels(torch, pk, plain):
     """Phase 2: bit-equality and timing of the four kernels."""
     import torch.nn.functional as F
@@ -109,29 +151,14 @@ def check_kernels(torch, pk, plain):
     detail, errs = [], {k: 0.0 for k in pk.KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         esize = torch.finfo(dtype).bits // 8
+        for shape in RAGGED_POOL_SHAPES:
+            check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
+        check_pool_exact(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype,
+                         errs, offset=1)
         for shape, where in POOL_SHAPES:
             n, hh, ww, c = shape
             small = (n, hh // 2, ww // 2, c)
-            x = ints(shape, 0, 4, dtype)                       # dense in ties
-            x_nan = x.clone()
-            x_nan[0, 0, 1, 0] = float("nan")
-            for xx in (x, x_nan):
-                pk_out = pk.max_pool_2x2_with_mask_kernel(xx)
-                pl_out = plain.max_pool_2x2_with_mask(xx)
-                for a, b in zip(pk_out, pl_out):
-                    if not same(a, b):
-                        raise AssertionError(f"pool_mask_fwd {shape} {dtype} differs")
-                    errs["pool_mask_fwd"] = max(errs["pool_mask_fwd"], max_abs_err(a, b))
-            if float(pk_out[1][0, 1, 1, 0]) != 1.0:
-                raise AssertionError("a NaN window must set its mask at (1,1)")
-            g = ints(small, -3, 4, dtype)
-            grads = []
-            for fn in (pk.max_pool_2x2_with_mask_kernel, plain.max_pool_2x2_with_mask):
-                xr = x.clone().requires_grad_(True)
-                grads.append(torch.autograd.grad(fn(xr)[0], xr, g)[0])
-            if not same(*grads):
-                raise AssertionError(f"pool_mask_bwd {shape} {dtype} differs")
-            errs["pool_mask_bwd"] = max(errs["pool_mask_bwd"], max_abs_err(*grads))
+            check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
 
             big, sml = math.prod(shape) * esize, math.prod(small) * esize
             copies = max(2, math.ceil(2.0e8 / (2 * big + sml)))
@@ -153,11 +180,9 @@ def check_kernels(torch, pk, plain):
                          [0, 0], [1, 1], False, i),
                          [(a, gg, i) for (a, gg), i in zip(xg, idx)])),
                 ]
-            for name, nbytes, ms, plain_ms, lib_ms in rows:
-                detail.append({"name": name, "where": where, "shape": list(shape),
-                               "dtype": str(dtype).split(".")[1], "ms": ms,
-                               "plain_ms": plain_ms, "library_ms": lib_ms,
-                               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            copy = copy_ms(torch, 2 * big + sml)
+            detail += [timing_row(name, where, shape, dtype, nbytes, ms, plain_ms,
+                                  lib_ms, copy) for name, nbytes, ms, plain_ms, lib_ms in rows]
 
         for shape, where in UNPOOL_SHAPES:
             n, h, w, c = shape
@@ -208,12 +233,33 @@ def check_kernels(torch, pk, plain):
                      device_ms(_plain_unpool_bwd(torch, plain), sets),
                      device_ms(lambda yc, i, gf, iflat: torch.gather(gf, 2, iflat), lib)),
                 ]
-            for name, nbytes, ms, plain_ms, lib_ms in rows:
-                detail.append({"name": name, "where": where, "shape": list(shape),
-                               "dtype": str(dtype).split(".")[1], "ms": ms,
-                               "plain_ms": plain_ms, "library_ms": lib_ms,
-                               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            copy = copy_ms(torch, 2 * big + sml)
+            detail += [timing_row(name, where, shape, dtype, nbytes, ms, plain_ms,
+                                  lib_ms, copy) for name, nbytes, ms, plain_ms, lib_ms in rows]
     return detail, errs
+
+
+def timing_row(name, where, shape, dtype, nbytes, ms, plain_ms, lib_ms, copy):
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "where": where, "shape": list(shape),
+            "dtype": str(dtype).split(".")[1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / ms, "copy_ms": copy}
+
+
+def copy_ms(torch, nbytes: int) -> float:
+    """Device time of one ``Tensor.copy_`` that moves ``nbytes`` in all
+    (half read, half written), inputs rotated over ≥ 200 MB like the
+    kernels': what the memory system takes for that many bytes."""
+    n = nbytes // 8                                  # fp32 elements per side
+    srcs = [(torch.ones(n, device="cuda"),) for _ in range(max(2, math.ceil(2e8 / nbytes)))]
+    return device_ms(lambda t: torch.empty_like(t).copy_(t), srcs)
+
+
+def launch_floor_ms(torch) -> float:
+    """Device time per launch of a near-empty kernel (a sleep of a few
+    cycles) under the same device_ms harness as the kernels."""
+    return device_ms(lambda: torch.cuda._sleep(8), [()])
 
 
 class _Ctx:
@@ -320,15 +366,18 @@ def main() -> int:
     log = pk.build()
     print(f"phase 1: built {SOURCE} in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     detail, errs = check_kernels(torch, pk, plain)
     print("phase 2: 4 kernels bit-equal to their plain versions "
-          "(fp32, bf16, ties, NaN window)", flush=True)
+          "(fp32, bf16, ties, NaN window; pool pair also at ragged shapes "
+          f"{RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
     print(json.dumps({"kernel_detail": detail, "card": card}), flush=True)
+    print(json.dumps({"launch_floor_ms": launch_floor_ms(torch), "card": card}),
+          flush=True)
 
     ce = get_loss_fn("cross_entropy")
     ref_errs = check_reference(torch, Enet, ce)
@@ -375,6 +424,7 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in rows)})
+        kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,12 +11,25 @@ Kernels (see the header of ``csrc/pool_mask.cu`` for their semantics):
 * ``pool_mask_fwd`` replaces ``_pool_mask_kernel`` /
   ``max_pool_2x2_with_mask_pallas`` (dct_tpu/ops/pallas_pool.py). Bound on
   an H100: bytes, x read once plus pooled and mask written once, over
-  3.35 TB/s. One thread per pooled element, channels fastest, so every
-  access coalesces for any C.
+  3.35 TB/s.
 * ``pool_mask_bwd`` replaces JAX's autodiff of that pool. Bound: bytes, x
   and the pooled gradient read, the input gradient written. It recomputes
   the two inner maxima from the saved x rather than saving them, so the
   forward writes nothing extra.
+
+  Both work on row-pair tiles: a tile is a run of pooled columns of one
+  pooled row, whose two input rows and one pooled row are three contiguous
+  spans. A block stages them in shared memory with 16-byte ``cp.async``
+  copies, computes the windows there two channels at a time (bf16 pairs as
+  32-bit SIMD words), and writes pooled, mask or gx back as 16-byte
+  vectors; a span's unaligned head and tail go one element a thread inside
+  the same kernel. :func:`pool_tiling` computes the launch (tile width,
+  grid, threads, shared memory, pack, the magic multiplier that replaces
+  the division by C, and whether every span is whole 16-byte vectors), once
+  per shape; the C entry points reject a tiling that does not fit the
+  shape. On the main path: 2,048 blocks of 128 threads at each shape,
+  2.3–5.2 KB of shared memory a block, 20–28 registers a thread
+  (``-Xptxas -v`` on an H100).
 * ``unpool_fwd`` replaces ``_unpool_kernel`` / ``mask_unpool_2x2_pallas``.
   Bound: bytes, y and the mask read, the output written.
 * ``unpool_bwd`` replaces JAX's autodiff of the unpool. Bound: bytes, the
@@ -28,13 +41,15 @@ resets it with :func:`reset_launch_counts` to show which kernels a path used.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -48,8 +63,82 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+TILED = ("pool_mask_fwd", "pool_mask_bwd")   # take the tiling arguments
+
+VEC_BYTES = 16            # one cp.async / uint4 access
+TILE_ELEMS = 256          # pooled elements a tile aims at
+ELEMS_PER_THREAD = 2      # pooled elements each thread computes per tile
+SMEM_DEFAULT = 49_152     # dynamic shared memory a block gets unasked
+SMEM_MAX = 232_448        # and at most, once the kernel is allowed it (H100)
+GRID_Y_MAX = 65_535       # row pairs per launch; the kernel loops beyond
+INT32_MAX = 2**31 - 1
+
 _lib = None
 _lock = threading.Lock()
+
+
+class PoolTiling(NamedTuple):
+    """Launch of pool_mask_fwd / pool_mask_bwd for one pooled shape, in the
+    order of the C entry points' trailing arguments."""
+    tile_w: int           # pooled columns per tile (a row's last may be fewer)
+    tiles_per_row: int    # grid x
+    grid_rows: int        # grid y: row pairs n * h, at most GRID_Y_MAX
+    threads: int
+    smem_bytes: int       # dynamic shared memory per block
+    vec: int              # 0: scalar; 1: 16-byte accesses on each span's
+                          # aligned body; 2: every span whole 16-byte vectors
+    pack: int             # channels per shared-memory access: 2 or 1
+    magic: int            # ceil(2**32 / (c // pack)): division by multiply
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_per_row * self.grid_rows
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _buffer_elems(length: int, v: int) -> int:
+    """Shared-memory buffer of a span: one vector of padding, whole vectors
+    (buffer_elems in csrc/pool_mask.cu)."""
+    return (length + 2 * v - 1) // v * v
+
+
+@functools.lru_cache(maxsize=256)
+def pool_tiling(pooled_shape: Tuple[int, int, int, int], esize: int,
+                aligned: bool = True) -> PoolTiling:
+    """Cut each pooled row into tiles of about TILE_ELEMS elements, as even
+    as the row allows, each tile's width a multiple of the columns that fill
+    whole 16-byte vectors where C allows it; give each thread about
+    ELEMS_PER_THREAD pooled elements. ``aligned``: every pointer is 16-byte
+    aligned, so the aligned body of a span may use 16-byte accesses. Raises
+    ValueError for what one launch cannot cover. Memoised: a training step
+    launches the same few shapes over and over."""
+    n, h, w, c = pooled_shape
+    v = VEC_BYTES // esize
+    pack = 2 if c % 2 == 0 else 1
+    magic = _cdiv(2**32, c // pack) if c // pack > 1 else 0
+    if n * h * w * c == 0:
+        return PoolTiling(1, 0, 0, 32, 0, int(aligned), pack, magic)
+    per_vec = VEC_BYTES // math.gcd(VEC_BYTES, c * esize)   # columns
+    tiles_per_row = _cdiv(w, max(1, TILE_ELEMS // c))
+    tile_w = min(w, _cdiv(_cdiv(w, tiles_per_row), per_vec) * per_vec)
+    tiles_per_row = _cdiv(w, tile_w)
+    last_w = w - (tiles_per_row - 1) * tile_w
+    exact = aligned and all(k * c % v == 0 for k in (w, tile_w, last_w))
+    threads = min(1024, _cdiv(_cdiv(tile_w * c, ELEMS_PER_THREAD), 32) * 32)
+    smem = esize * (2 * _buffer_elems(2 * tile_w * c, v)
+                    + _buffer_elems(tile_w * c, v))
+    if smem > SMEM_MAX:
+        raise ValueError(f"C = {c} needs {smem} bytes of shared memory for one "
+                         f"pooled column, more than a block has ({SMEM_MAX})")
+    if (n * h > INT32_MAX or w > INT32_MAX or tiles_per_row > INT32_MAX
+            or tile_w * c * (c // pack) >= 2**32):
+        raise ValueError(f"pooled shape {pooled_shape} is too large for one "
+                         "launch")
+    return PoolTiling(tile_w, tiles_per_row, min(n * h, GRID_Y_MAX), threads,
+                      smem, 2 if exact else int(aligned), pack, magic)
 
 
 def reset_launch_counts() -> None:
@@ -93,7 +182,9 @@ def build() -> str:
         for name in KERNELS:
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                           + ([ctypes.c_int] * 7 + [ctypes.c_uint]
+                              if name in TILED else []))
             fn.restype = ctypes.c_int
         _lib = lib
         return log
@@ -107,9 +198,13 @@ def _launch(name: str, p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     dev = p0.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     n, h, w, c = pooled_shape
-    rc = getattr(_lib, name)(p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-                             n, h, w, c, int(p0.dtype == torch.bfloat16),
-                             dev.index, stream)
+    ptrs = (p0.data_ptr(), p1.data_ptr(), p2.data_ptr())
+    tiling = ()
+    if name in TILED:
+        tiling = pool_tiling(tuple(pooled_shape), p0.element_size(),
+                             all(p % VEC_BYTES == 0 for p in ptrs))
+    rc = getattr(_lib, name)(*ptrs, n, h, w, c, int(p0.dtype == torch.bfloat16),
+                             dev.index, stream, *tiling)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
