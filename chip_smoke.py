@@ -9,13 +9,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``dct_tpu_torch/csrc/pool_mask.cu`` with nvcc for sm_90a.
 2. Each of the four CUDA kernels at the shapes ENet's main path gives it
    (8 images at 256²), in fp32 and bf16, held bit-equal to its plain PyTorch
-   version on tie-dense integer-valued inputs, with one NaN window in the
-   forwards; the pool pair also at ragged shapes (spans off 16 bytes, odd
-   w·c) and from a pointer off 16 bytes, which run the kernels' scalar
-   edge path, at 4096 channels (over 48 KB of shared memory a block in
-   fp32) and at more row pairs than a grid has rows. Then each is timed
-   with CUDA events beside its byte bound,
-   one PyTorch library call that computes the same function and a
+   version on tie-dense integer-valued inputs (the unpool pair through masks
+   the pool makes from them), with one NaN window in the pool's forward, a
+   NaN in y and a NaN and an inf in g at masked-out corners; all four also
+   at ragged shapes (spans off 16 bytes, odd w·c) and from pointers off 16
+   bytes, which run the kernels' scalar edge path, at 4096 channels (over
+   48 KB of shared memory a block in fp32) and at more row pairs than a
+   grid has rows. Then each is timed with CUDA events beside its byte
+   bound, one PyTorch library call that computes the same function and a
    ``copy_`` that moves as many bytes; a near-empty kernel is timed the
    same way: the launch floor.
 3. Two full-width ENets (4 classes) take 3 co-training iterations in fp32
@@ -51,10 +52,11 @@ POOL_SHAPES = [((N_IMG, 128, 128, 14), "bottleneck_1_0"),
                ((N_IMG, 64, 64, 64), "bottleneck_2_0")]
 UNPOOL_SHAPES = [((N_IMG, 32, 32, 64), "bottleneck_4_0"),
                  ((N_IMG, 64, 64, 14), "bottleneck_5_0")]
-# pool inputs whose spans are not whole 16-byte vectors (w·c odd in the
-# fourth; the fifth runs channel pairs with a head and a tail); one pooled
-# column of 4096 channels (over 48 KB of shared memory a block in fp32);
-# 65,538 row pairs, more than a grid has rows
+# full-resolution shapes (the pool's input, the unpool's mask and output)
+# whose spans are not whole 16-byte vectors (pooled w·c odd in the fourth;
+# the fifth runs channel pairs with a head and a tail); one pooled column of
+# 4096 channels (over 48 KB of shared memory a pool block in fp32); 65,538
+# row pairs, more than a grid has rows
 RAGGED_POOL_SHAPES = [(1, 2, 2, 1), (3, 6, 10, 3), (2, 130, 34, 14), (2, 6, 14, 5),
                       (2, 6, 10, 4), (1, 2, 4, 4096), (2, 65538, 4, 2)]
 REPLACES = {
@@ -140,6 +142,55 @@ def check_pool_exact(torch, pk, plain, ints, shape, dtype, errs,
     errs["pool_mask_bwd"] = max(errs["pool_mask_bwd"], max_abs_err(*grads))
 
 
+def check_unpool_exact(torch, pk, plain, ints, shape, dtype, errs,
+                       offset=0) -> None:
+    """unpool_fwd (with and without a NaN in y) and unpool_bwd (with and
+    without a NaN and an inf in g at masked-out corners) bit-equal to the
+    plain versions, through the mask the pool makes from a tie-dense input
+    of the full-resolution ``shape``. ``offset`` elements in front of y, the
+    mask and g in their buffers move their pointers off 16 bytes."""
+    n, hh, ww, c = shape
+    small = (n, hh // 2, ww // 2, c)
+
+    def placed(t):
+        """t's values, ``offset`` elements into a buffer of their own."""
+        buf = torch.empty(offset + t.numel(), dtype=dtype, device="cuda")
+        buf[offset:] = t.flatten()
+        return buf[offset:].view(t.shape)
+
+    what = f"{shape} {dtype}" + (f" at offset {offset}" if offset else "")
+    mask = placed(plain.max_pool_2x2_with_mask(ints(shape, 0, 4, dtype))[1])
+    y = placed(ints(small, -3, 4, dtype))
+    y_nan = placed(y)
+    y_nan[0, 0, 0, 0] = float("nan")
+    for yy in (y, y_nan):
+        a = pk.mask_unpool_2x2_kernel(yy, mask)
+        b = plain.mask_unpool_2x2(yy, mask)
+        if not same(a, b):
+            raise AssertionError(f"unpool_fwd {what} differs")
+        errs["unpool_fwd"] = max(errs["unpool_fwd"], max_abs_err(a, b))
+    if not bool(torch.isnan(a[0, :2, :2, 0]).all()):
+        raise AssertionError("a NaN in y must spread over its window")
+    g = placed(ints(shape, -3, 4, dtype))
+    g_bad = placed(g)
+    hidden = [int(i) for i in (mask.flatten() == 0).nonzero()[[0, -1], 0]]
+    g_bad.view(-1)[hidden[0]] = float("nan")     # two masked-out corners
+    g_bad.view(-1)[hidden[1]] = float("inf")
+    for gg in (g, g_bad):
+        grads = []
+        for fn in (pk.mask_unpool_2x2_kernel, plain.mask_unpool_2x2):
+            yr = placed(y).requires_grad_(True)
+            grads.append(torch.autograd.grad(fn(yr, mask), yr, gg)[0])
+        if not same(*grads):
+            raise AssertionError(f"unpool_bwd {what} differs")
+        errs["unpool_bwd"] = max(errs["unpool_bwd"], max_abs_err(*grads))
+    for f in hidden:
+        i, r, col, ch = np.unravel_index(f, shape)
+        if not bool(torch.isnan(grads[0][i, r // 2, col // 2, ch])):
+            raise AssertionError("a NaN or an inf in g at a masked-out corner "
+                                 f"must make gy NaN ({what})")
+
+
 def check_kernels(torch, pk, plain):
     """Phase 2: bit-equality and timing of the four kernels."""
     import torch.nn.functional as F
@@ -152,9 +203,11 @@ def check_kernels(torch, pk, plain):
     for dtype in (torch.float32, torch.bfloat16):
         esize = torch.finfo(dtype).bits // 8
         for shape in RAGGED_POOL_SHAPES:
-            check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
-        check_pool_exact(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype,
-                         errs, offset=1)
+            for check in (check_pool_exact, check_unpool_exact):
+                check(torch, pk, plain, ints, shape, dtype, errs)
+        for check in (check_pool_exact, check_unpool_exact):
+            check(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype, errs,
+                  offset=1)
         for shape, where in POOL_SHAPES:
             n, hh, ww, c = shape
             small = (n, hh // 2, ww // 2, c)
@@ -187,24 +240,7 @@ def check_kernels(torch, pk, plain):
         for shape, where in UNPOOL_SHAPES:
             n, h, w, c = shape
             full = (n, 2 * h, 2 * w, c)
-            mask = plain.max_pool_2x2_with_mask(ints(full, 0, 4, dtype))[1]
-            y = ints(shape, -3, 4, dtype)
-            y_nan = y.clone()
-            y_nan[0, 0, 0, 0] = float("nan")
-            for yy in (y, y_nan):
-                a = pk.mask_unpool_2x2_kernel(yy, mask)
-                b = plain.mask_unpool_2x2(yy, mask)
-                if not same(a, b):
-                    raise AssertionError(f"unpool_fwd {shape} {dtype} differs")
-                errs["unpool_fwd"] = max(errs["unpool_fwd"], max_abs_err(a, b))
-            g = ints(full, -3, 4, dtype)
-            grads = []
-            for fn in (pk.mask_unpool_2x2_kernel, plain.mask_unpool_2x2):
-                yr = y.clone().requires_grad_(True)
-                grads.append(torch.autograd.grad(fn(yr, mask), yr, g)[0])
-            if not same(*grads):
-                raise AssertionError(f"unpool_bwd {shape} {dtype} differs")
-            errs["unpool_bwd"] = max(errs["unpool_bwd"], max_abs_err(*grads))
+            check_unpool_exact(torch, pk, plain, ints, full, dtype, errs)
 
             big, sml = math.prod(full) * esize, math.prod(shape) * esize
             copies = max(2, math.ceil(2.0e8 / (2 * big + sml)))
@@ -373,7 +409,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     detail, errs = check_kernels(torch, pk, plain)
     print("phase 2: 4 kernels bit-equal to their plain versions "
-          "(fp32, bf16, ties, NaN window; pool pair also at ragged shapes "
+          "(fp32, bf16, ties, NaN window, NaN in y, NaN and inf in g at "
+          "masked-out corners; at the main-path shapes, at ragged shapes "
           f"{RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
     print(json.dumps({"kernel_detail": detail, "card": card}), flush=True)
     print(json.dumps({"launch_floor_ms": launch_floor_ms(torch), "card": card}),

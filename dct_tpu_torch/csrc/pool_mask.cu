@@ -18,59 +18,81 @@
 //     g * w(m1, p, m2) * w(a, m1, b) with w(x, z, y) = x == z ? (y == z ?
 //     1/2 : 1) : 0, so [1,1,1,0] gives [1/4, 1/4, 1/2, 0]. Every weight is
 //     1, 1/2, 1/4 or 0, so the products are exact. The mask gets no gradient.
-//   * unpool: out = y repeated over each window times the mask (a multiply,
-//     so NaN * 0 stays NaN); its backward is the window sum of g * mask.
+//   * unpool: out = y repeated over each window times the mask. It is a
+//     multiply, not a select, so a NaN in y spreads over its window. A
+//     product of two bf16 values is exact in fp32, so one mul.rn.bf16x2 a
+//     corner rounds as the plain fp32 multiply and one rounding do.
+//   * unpool backward: gy = the window sum of g * mask. Every corner is
+//     multiplied, the masked-out ones too, so a NaN or an inf in g where
+//     the mask is 0 makes gy NaN. The contract is the mask pool_mask_fwd
+//     makes, one 1 and three 0 a window: each product is then exact and
+//     the sum adds one of them to zeros, so every order and rounding gives
+//     the plain version's bits. The kernel sums as a chain of fused
+//     multiply-adds (fma.rn.bf16x2 on bf16 pairs, fp32 otherwise). On other
+//     masks it may round otherwise than the plain version, which rounds
+//     each bf16 product before it sums in fp32.
 //
 // Bound on an H100 SXM: bytes. Each kernel does a few compares or multiplies
 // per element it moves, far below the card's ~20 operations per byte for
 // fp32 CUDA-core math, so its least time is the bytes it must read and write
-// over 3.35 TB/s. Comparisons run in fp32 (__bfloat162float for bf16), and
-// pooled values are copied from the input bits, never re-rounded.
+// over 3.35 TB/s. bf16 channel pairs are compared and multiplied as 32-bit
+// words (set.*.u32.bf16x2, mul.rn.bf16x2, fma.rn.bf16x2), single channels
+// in fp32 (__bfloat162float for bf16); pooled values are copied from the
+// input bits, never re-rounded.
 //
-// pool_mask_fwd and pool_mask_bwd (one template, pool_tiled_kernel) work on
-// row-pair tiles. For a fixed (n, i) the input rows 2i and 2i+1 are each one
-// contiguous span of 2w*c elements and the pooled row i one span of w*c; a
-// tile is the pooled columns [j0, j0 + tile_w) of one row pair, so it reads
-// and writes three contiguous spans. Block (tile of the row, row pair) takes
-// one tile:
+// All four kernels are one template, tiled_kernel<Op, T, N, kExact>, on
+// row pairs: for a fixed (n, i) the full-resolution rows 2i and 2i+1 are
+// each one contiguous span of 2w*c elements and the pooled row i one span
+// of w*c. A 2-D grid (tile of the row, row pair) names a block's work, so
+// the kernel has no division: the wrapper computes the tiling (tile, grid,
+// threads, shared memory, N and a magic multiplier for c / N, whose
+// umulhi gives a pack's column), and the entry points check it against the
+// shape and the pointers. bf16 pairs are compared, selected and multiplied
+// as 32-bit words.
+//
+// The pool pair stages a tile in shared memory. A tile is the pooled
+// columns [j0, j0 + tile_w) of one row pair, so it reads and writes three
+// contiguous spans:
 //   1. stage: copy the spans of x (and, backward, of g) into shared memory,
 //      16 bytes a thread with cp.async; a span's unaligned head and tail go
 //      one element a thread, inside the same kernel;
 //   2. compute: each thread takes pooled elements two channels at a time
 //      (c even) as one 32-bit shared-memory access, reads the four window
 //      corners and writes pooled (forward) and the mask or gx back over the
-//      staged x (windows are disjoint, so each thread owns its four slots).
-//      bf16 pairs are compared, selected and weighted as 32-bit words
-//      (set.*.u32.bf16x2, bitwise selects, one mul.rn.bf16x2 per corner);
-//   3. store: pooled, mask or gx go out as 16-byte vectors along the same
-//      spans.
-// What the design does about the one-thread-per-element kernel before it:
-//   * instructions per byte: a warp's global load or store moves 512 bytes
-//     instead of 64 (bf16); bf16 window math is ~1/3 of the instructions;
-//   * sectors: each 32-byte sector of x, mask or gx is moved by one
-//     instruction, whatever C is (C = 14 runs of 28 bytes included);
-//   * index math: the wrapper computes the tiling (tile width, grid,
-//     threads, shared memory, a magic multiplier for c / 2, and whether all
-//     spans are whole 16-byte vectors, which compiles the head and tail code
-//     out). The kernel has no division: a 2-D grid names the tile, and
-//     column = umulhi(pair, magic). Only a tile's base offset is 64-bit;
-//   * bytes in flight: every thread issues all its copies before it waits;
-//     256-element tiles and 2 elements a thread give the main path 2,048
-//     blocks of 128 threads, all resident at once.
-// Shared memory per block: two x buffers of 2*tile_w*c elements and one of
-// tile_w*c, each padded by one vector so a buffer and its span agree modulo
-// 16 bytes (ops/pool_kernels.py:pool_tiling computes the same size). On the
-// main path that is 2,288 / 2,608 bytes in bf16 and 4,528 / 5,168 in fp32
-// (bottleneck_1_0 / bottleneck_2_0), all dynamic. -Xptxas -v on an H100
-// (sm_90a, CUDA 12.8): the main path's instances (N = 2, whole spans) use
-// 20 (fwd) and 26 (bwd) registers a thread in bf16, 22 and 28 in fp32; no
-// instance spills or uses more than 32.
+//      staged x (windows are disjoint, so each thread owns its four slots);
+//      one mul.rn.bf16x2 per corner weights the backward;
+//   3. store: pooled, mask or gx go out as 16-byte vectors along the spans.
+// 256-element tiles and 2 elements a thread give the main path 2,048 blocks
+// of 128 threads at each shape, all resident at once.
+//
+// The unpool pair loads and stores one pack of N channels a thread straight
+// from and to the tensors, DIRECT_THREADS (128) packs a block, with no
+// shared memory and no loop, so each thread's loads are all in flight before
+// it computes. unpool_fwd walks the two full-resolution rows (a warp's
+// loads and stores are each one contiguous run; the pack of y repeats in
+// L1); unpool_bwd walks the pooled row and loads the four corners of g and
+// of the mask (corner (0,1) finds in L1 the sectors that corner (0,0)
+// fetched). Row pairs beyond the grid's 65,535 rows take its third
+// dimension. Staging the unpool pair in shared memory like the pool pair,
+// with 16-byte stores, was slower on an H100 in the same chip call at both
+// main-path shapes in bf16, most of all in the backward, which reads four
+// spans for every one it writes (PERF.md).
+//
+// Shared memory per pool block: two buffers of 2*tile_w*c elements and one
+// of tile_w*c, each padded by one vector so a buffer and its span agree
+// modulo 16 bytes (ops/pool_kernels.py:pool_tiling computes the same size):
+// 2,288 / 2,608 bytes in bf16 and 4,528 / 5,168 in fp32 on the main path
+// (C = 14 / C = 64), all dynamic. -Xptxas -v on an H100 (sm_90a, CUDA
+// 12.8), the main path's instances (N = 2; whole spans for the pool): 20
+// (pool fwd), 26 (pool bwd), 16 (unpool fwd) and 24 (unpool bwd) registers
+// a thread in bf16, 22, 28, 20 and 25 in fp32; no instance spills.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success).
 
 #include <cstdint>
 #include <cstring>
+#include <initializer_list>
 #include <type_traits>
 
 #include <cuda_bf16.h>
@@ -106,29 +128,6 @@ __device__ __forceinline__ bool first_is_max(float a, float b) {
 __device__ __forceinline__ float balanced(float x, float z, float y) {
   return x == z ? (y == z ? 0.5f : 1.0f) : 0.0f;
 }
-
-// Offsets of the four window corners of pooled element idx (n, i, j, ch) in
-// an (n, 2h, 2w, c) tensor: r0 = (0,0); r0 + c = (0,1); r1 = (1,0); r1 + c.
-struct Window {
-  int64_t r0, r1;
-};
-
-__device__ __forceinline__ Window window_of(int64_t idx, int64_t h, int64_t w,
-                                            int64_t c) {
-  const int64_t ch = idx % c;
-  int64_t t = idx / c;
-  const int64_t j = t % w;
-  t /= w;
-  const int64_t i = t % h;
-  const int64_t n = t / h;
-  const int64_t row = 2 * w * c;  // one full-resolution row
-  Window win;
-  win.r0 = (n * 2 * h + 2 * i) * row + 2 * j * c + ch;
-  win.r1 = win.r0 + row;
-  return win;
-}
-
-// ---- pool_mask_fwd / pool_mask_bwd: row-pair tiles in shared memory ----
 
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte access
@@ -208,17 +207,18 @@ __device__ __forceinline__ void unstage(T* __restrict__ g, const T* sm, Span s) 
 // Launch parameters, all computed by the wrapper (ops/pool_kernels.py:
 // pool_tiling). Sizes are the pooled tensor's; rows = n * h row pairs.
 struct Tiling {
-  int rows, w, c, tile_w;
+  int rows, w, c;
+  int tile_w;      // pool: pooled columns a tile; unpool: packs (= threads)
   int vec;         // 0: all scalar; 1: 16-byte body; 2: spans all whole
   unsigned magic;  // ceil(2^32 / (c / N)): j = umulhi(kk, magic), exact here
 };
 
 // Tile (tj, rp): pooled columns [tj * tile_w, +tile_w) of row pair rp =
-// n * h + i, whose input rows are 2 * rp and 2 * rp + 1 of the
-// (n * 2h, 2w * c) view of x. A 2-D grid (tiles of a row, row pairs) needs
-// no division to find them.
+// n * h + i, whose full-resolution rows are 2 * rp and 2 * rp + 1 of the
+// (n * 2h, 2w * c) view. A 2-D grid (tiles of a row, row pairs) needs no
+// division to find them.
 struct Tile {
-  int64_t in0, in1, out;  // span starts: input rows 2i, 2i+1; pooled row i
+  int64_t in0, in1, out;  // span starts: full rows 2i, 2i+1; pooled row i
   int m;                  // pooled elements in the tile (columns * c)
 };
 
@@ -240,9 +240,10 @@ __host__ __device__ __forceinline__ I buffer_elems(I len) {
   return (len + 2 * kVec<T> - 1) / kVec<T> * kVec<T>;
 }
 
-// N neighbouring channels, read and written in shared memory as one access
-// (the wrapper picks N = 2 where c is even, else 1, so a pack never
-// crosses a window corner and stays aligned).
+// N neighbouring channels, read and written as one access, in shared memory
+// (pool pair) or in the tensors (unpool pair). The wrapper picks N = 2
+// where c is even (and, for the unpool pair, every pointer aligned), else
+// 1, so a pack never crosses a window corner and stays aligned.
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Pack {
   T v[N];
@@ -253,9 +254,9 @@ __device__ __forceinline__ Pack<T, N>& pack_at(T* p) {
   return *reinterpret_cast<Pack<T, N>*>(p);
 }
 
-// Offset in a staged input row of the (0,0) corner of pack kk of the tile:
-// pooled element k = N * kk at column j = k / c, channel k - j * c, sits at
-// 2 * j * c + (k - j * c) = k + j * c.
+// Offset in a full-resolution row of the (0,0) corner of pooled pack kk
+// (counted from the same column): pooled element k = N * kk at column
+// j = k / c, channel k - j * c, sits at 2 * j * c + (k - j * c) = k + j * c.
 template <int N>
 __device__ __forceinline__ int corner_of(int kk, const Tiling& a) {
   const int j = a.c == N ? kk : static_cast<int>(__umulhi(kk, a.magic));
@@ -316,7 +317,7 @@ __device__ __forceinline__ void set_word(Pack<T, N>& p, unsigned w) {
   memcpy(&p, &w, sizeof(w));
 }
 
-// The forward on one pack: pooled into po, the mask over the corners.
+// pool_mask_fwd on one pack: pooled into po, the mask over the corners.
 template <typename T, int N>
 __device__ __forceinline__ void fwd_pack(Pack<T, N>& pa, Pack<T, N>& pb,
                                          Pack<T, N>& pc, Pack<T, N>& pd,
@@ -365,7 +366,7 @@ __device__ __forceinline__ void fwd_pack(Pack<T, N>& pa, Pack<T, N>& pb,
   }
 }
 
-// The backward on one pack: gx over the corners, from the pooled gradient.
+// pool_mask_bwd on one pack: gx over the corners, from the pooled gradient.
 // The weight products are 0, 1/4, 1/2 or 1, so g * (w1 * wa) rounds once,
 // in one bf16 multiply as in fp32 ones.
 template <typename T, int N>
@@ -409,204 +410,302 @@ __device__ __forceinline__ void bwd_pack(Pack<T, N>& pa, Pack<T, N>& pb,
   }
 }
 
-// pool_mask_fwd (kBwd false: small = pooled, big = mask) and pool_mask_bwd
-// (kBwd true: small = g, read only; big = gx). Block (tj, y) takes the tile
-// (tj, rp) of row pair rp = y, and y + gridDim.y, ... where there are more
-// row pairs than a grid has rows.
-template <typename T, int N, bool kBwd, bool kExact>
-__global__ void pool_tiled_kernel(const T* __restrict__ x,
-                                  T* __restrict__ small, T* __restrict__ big,
-                                  Tiling a) {
+// unpool_fwd on one pack of one full-resolution row: y * mask.
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> unpool_fwd_pack(const Pack<T, N>& pm,
+                                                      const Pack<T, N>& py) {
+  Pack<T, N> r;
+  if constexpr (kPairs<T, N>) {
+    set_word(r, u32(__hmul2_rn(b2(word(py)), b2(word(pm)))));
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      r.v[q] = Cvt<T>::from(Cvt<T>::to(py.v[q]) * Cvt<T>::to(pm.v[q]));
+  }
+  return r;
+}
+
+// unpool_bwd on one pack: gy = sum over the corners of g * mask, as a chain
+// of fused multiply-adds (exact for the one-hot masks of the contract). The
+// chain runs from corner (1,1) back to (0,0): in that order ptxas issues
+// all eight loads of a thread before the first multiply (in the order
+// (0,0) first it waits for half of them in bf16, two memory round trips).
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> unpool_bwd_pack(
+    const Pack<T, N>& ga, const Pack<T, N>& gb, const Pack<T, N>& gc,
+    const Pack<T, N>& gd, const Pack<T, N>& ma, const Pack<T, N>& mb,
+    const Pack<T, N>& mc, const Pack<T, N>& md) {
+  Pack<T, N> r;
+  if constexpr (kPairs<T, N>) {
+    __nv_bfloat162 s = __hmul2_rn(b2(word(gd)), b2(word(md)));
+    s = __hfma2(b2(word(gc)), b2(word(mc)), s);
+    s = __hfma2(b2(word(gb)), b2(word(mb)), s);
+    s = __hfma2(b2(word(ga)), b2(word(ma)), s);
+    set_word(r, u32(s));
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      float s = Cvt<T>::to(gd.v[q]) * Cvt<T>::to(md.v[q]);
+      s = fmaf(Cvt<T>::to(gc.v[q]), Cvt<T>::to(mc.v[q]), s);
+      s = fmaf(Cvt<T>::to(gb.v[q]), Cvt<T>::to(mb.v[q]), s);
+      s = fmaf(Cvt<T>::to(ga.v[q]), Cvt<T>::to(ma.v[q]), s);
+      r.v[q] = Cvt<T>::from(s);
+    }
+  }
+  return r;
+}
+
+enum class Op { kPoolFwd, kPoolBwd, kUnpoolFwd, kUnpoolBwd };
+
+// The pool pair stages its tiles in shared memory; the unpool pair loads
+// and stores each pack straight from and to the tensors.
+template <Op kOp>
+constexpr bool kStaged = kOp == Op::kPoolFwd || kOp == Op::kPoolBwd;
+
+// The pool pair on one tile: stage x's two row spans (and, backward, g's
+// pooled span), compute in shared memory, store the outputs' spans.
+template <Op kOp, typename T, int N, bool kExact>
+__device__ __forceinline__ void staged_tile(const T* __restrict__ x,
+                                            const T* __restrict__ g,
+                                            T* __restrict__ full_out,
+                                            T* __restrict__ pooled,
+                                            const Tile& tl, const Tiling& a) {
+  constexpr bool kBwd = kOp == Op::kPoolBwd;
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = a.c;
   const int in_elems = buffer_elems<T>(2 * a.tile_w * c);
-  T* const s0 = reinterpret_cast<T*>(smem);  // input row 2i, then mask/gx
-  T* const s1 = s0 + in_elems;               // input row 2i+1, then mask/gx
+  T* const s0 = reinterpret_cast<T*>(smem);  // x row 2i, then mask or gx
+  T* const s1 = s0 + in_elems;               // x row 2i+1, then mask or gx
   T* const so = s1 + in_elems;               // pooled (fwd) or g (bwd)
-  for (int rp = blockIdx.y; rp < a.rows; rp += gridDim.y) {
-    const Tile tl = tile_of(blockIdx.x, rp, a);
-    const Span r0 = span_of<T, kExact>(tl.in0, 2 * tl.m, a.vec);
-    const Span r1 = span_of<T, kExact>(tl.in1, 2 * tl.m, a.vec);
-    const Span ro = span_of<T, kExact>(tl.out, tl.m, a.vec);
-    stage<T, kExact>(s0, x + tl.in0, r0);
-    stage<T, kExact>(s1, x + tl.in1, r1);
-    if (kBwd) stage<T, kExact>(so, small + tl.out, ro);
-    cp_async_wait_all();
-    __syncthreads();
-    T* const u = s0 + r0.pad;
-    T* const v = s1 + r1.pad;
-    T* const o = so + ro.pad;
-    for (int kk = threadIdx.x; kk < tl.m / N; kk += blockDim.x) {
-      const int ia = corner_of<N>(kk, a);
-      if (kBwd)
-        bwd_pack<T, N>(pack_at<T, N>(u + ia), pack_at<T, N>(u + ia + c),
-                       pack_at<T, N>(v + ia), pack_at<T, N>(v + ia + c),
-                       pack_at<T, N>(o + N * kk));
-      else
-        fwd_pack<T, N>(pack_at<T, N>(u + ia), pack_at<T, N>(u + ia + c),
-                       pack_at<T, N>(v + ia), pack_at<T, N>(v + ia + c),
-                       pack_at<T, N>(o + N * kk));
-    }
-    __syncthreads();
-    if (!kBwd) unstage<T, kExact>(small + tl.out, so, ro);
-    unstage<T, kExact>(big + tl.in0, s0, r0);
-    unstage<T, kExact>(big + tl.in1, s1, r1);
-    __syncthreads();  // the next row pair restages the buffers
+  const Span r0 = span_of<T, kExact>(tl.in0, 2 * tl.m, a.vec);
+  const Span r1 = span_of<T, kExact>(tl.in1, 2 * tl.m, a.vec);
+  const Span ro = span_of<T, kExact>(tl.out, tl.m, a.vec);
+  stage<T, kExact>(s0, x + tl.in0, r0);
+  stage<T, kExact>(s1, x + tl.in1, r1);
+  if constexpr (kBwd) stage<T, kExact>(so, g + tl.out, ro);
+  cp_async_wait_all();
+  __syncthreads();
+  T* const u = s0 + r0.pad;
+  T* const v = s1 + r1.pad;
+  T* const o = so + ro.pad;
+  for (int kk = threadIdx.x; kk < tl.m / N; kk += blockDim.x) {
+    const int ia = corner_of<N>(kk, a);
+    Pack<T, N>& pa = pack_at<T, N>(u + ia);
+    Pack<T, N>& pb = pack_at<T, N>(u + ia + c);
+    Pack<T, N>& pc = pack_at<T, N>(v + ia);
+    Pack<T, N>& pd = pack_at<T, N>(v + ia + c);
+    if constexpr (kBwd)
+      bwd_pack<T, N>(pa, pb, pc, pd, pack_at<T, N>(o + N * kk));
+    else
+      fwd_pack<T, N>(pa, pb, pc, pd, pack_at<T, N>(o + N * kk));
+  }
+  __syncthreads();
+  if constexpr (!kBwd) unstage<T, kExact>(pooled + tl.out, so, ro);
+  unstage<T, kExact>(full_out + tl.in0, s0, r0);
+  unstage<T, kExact>(full_out + tl.in1, s1, r1);
+  __syncthreads();  // the next row pair restages the buffers
+}
+
+// A pack of global memory read once through the read-only path, in one
+// access of N * sizeof(T) bytes (the wrapper picks N = 2 only where every
+// pointer and offset keeps it aligned).
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> load_pack(const T* __restrict__ p) {
+  using W = std::conditional_t<sizeof(Pack<T, N>) == 8, uint2,
+            std::conditional_t<sizeof(Pack<T, N>) == 4, unsigned,
+                               unsigned short>>;
+  const W w = __ldg(reinterpret_cast<const W*>(p));
+  Pack<T, N> r;
+  memcpy(&r, &w, sizeof(r));
+  return r;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_pack(T* __restrict__ p,
+                                           const Pack<T, N>& v) {
+  pack_at<T, N>(p) = v;
+}
+
+// The unpool pair, one pack a thread, straight from and to the tensors
+// (no shared memory, no loop: each thread's loads are all in flight before
+// it computes). Pack kk of row pair rp is, for unpool_fwd, a pack of each
+// of the two full-resolution rows, in column q = kk / (c / N) (by magic),
+// with the pack of y whose window holds it: a warp's loads and stores are
+// each one contiguous run, and its loads of y repeat in L1. For unpool_bwd
+// it is a pack of the pooled row, with its four corners of g and of the
+// mask: a warp's loads of corner (0,0) fetch the sectors that its loads of
+// corner (0,1) then find in L1, and its stores of gy are contiguous.
+template <Op kOp, typename T, int N>
+__device__ __forceinline__ void direct_pack(const T* __restrict__ full,
+                                            const T* __restrict__ mask,
+                                            const T* __restrict__ y,
+                                            T* __restrict__ out,
+                                            T* __restrict__ gy, int64_t rp,
+                                            int kk, const Tiling& a) {
+  const int c = a.c;
+  const int wc = a.w * c;  // one pooled row (< 2^31: checked at launch)
+  const int64_t in0 = 4 * rp * wc, in1 = in0 + 2 * wc, po = rp * wc;
+  if constexpr (kOp == Op::kUnpoolFwd) {  // full is the mask
+    if (kk >= 2 * wc / N) return;
+    const int q = c == N ? kk : static_cast<int>(__umulhi(kk, a.magic));
+    const int e = N * kk;  // (q, e - q * c) sits in pooled (q / 2, e - q * c)
+    const Pack<T, N> py = load_pack<T, N>(y + po + e - ((q + 1) >> 1) * c);
+    const Pack<T, N> m0 = load_pack<T, N>(full + in0 + e);
+    const Pack<T, N> m1 = load_pack<T, N>(full + in1 + e);
+    store_pack<T, N>(out + in0 + e, unpool_fwd_pack<T, N>(m0, py));
+    store_pack<T, N>(out + in1 + e, unpool_fwd_pack<T, N>(m1, py));
+  } else {  // full is g
+    if (kk >= wc / N) return;
+    const int ia = corner_of<N>(kk, a);
+    const T* const g0 = full + in0 + ia;
+    const T* const g1 = full + in1 + ia;
+    const T* const m0 = mask + in0 + ia;
+    const T* const m1 = mask + in1 + ia;
+    store_pack<T, N>(gy + po + N * kk,
+                     unpool_bwd_pack<T, N>(
+                         load_pack<T, N>(g0), load_pack<T, N>(g0 + c),
+                         load_pack<T, N>(g1), load_pack<T, N>(g1 + c),
+                         load_pack<T, N>(m0), load_pack<T, N>(m0 + c),
+                         load_pack<T, N>(m1), load_pack<T, N>(m1 + c)));
   }
 }
 
-// ---- unpool_fwd / unpool_bwd: one thread per pooled element ----
-
-template <typename T>
-__global__ void unpool_fwd_kernel(const T* __restrict__ y,
-                                  const T* __restrict__ mask,
-                                  T* __restrict__ out, int64_t total,
-                                  int64_t h, int64_t w, int64_t c) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const Window win = window_of(idx, h, w, c);
-  const float v = Cvt<T>::to(y[idx]);
-  out[win.r0] = Cvt<T>::from(v * Cvt<T>::to(mask[win.r0]));
-  out[win.r0 + c] = Cvt<T>::from(v * Cvt<T>::to(mask[win.r0 + c]));
-  out[win.r1] = Cvt<T>::from(v * Cvt<T>::to(mask[win.r1]));
-  out[win.r1 + c] = Cvt<T>::from(v * Cvt<T>::to(mask[win.r1 + c]));
-}
-
-template <typename T>
-__global__ void unpool_bwd_kernel(const T* __restrict__ g,
-                                  const T* __restrict__ mask,
-                                  T* __restrict__ gy, int64_t total,
-                                  int64_t h, int64_t w, int64_t c) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const Window win = window_of(idx, h, w, c);
-  const float s = Cvt<T>::to(g[win.r0]) * Cvt<T>::to(mask[win.r0])
-                + Cvt<T>::to(g[win.r0 + c]) * Cvt<T>::to(mask[win.r0 + c])
-                + Cvt<T>::to(g[win.r1]) * Cvt<T>::to(mask[win.r1])
-                + Cvt<T>::to(g[win.r1 + c]) * Cvt<T>::to(mask[win.r1 + c]);
-  gy[idx] = Cvt<T>::from(s);
-}
-
-constexpr int kThreads = 256;
-
-// Pointers arrive in each entry point's argument order (p0, p1, p2); each
-// Launch casts them to the kernel's types. h, w are the pooled
-// (half-resolution) sizes; total = n * h * w * c.
-template <template <typename> class Launch>
-int dispatch(const void* p0, const void* p1, const void* p2, int64_t n,
-             int64_t h, int64_t w, int64_t c, int is_bf16, int device,
-             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = n * h * w * c;
-  if (total == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    Launch<__nv_bfloat16>::run(blocks, s, p0, p1, p2, total, h, w, c);
+// One template for the four kernels. The tensors by role (unused ones
+// null):
+//   full       full-resolution input: x (pool), the mask (unpool_fwd), g
+//   mask       unpool_bwd's mask
+//   pooled_in  pooled input: g (pool_mask_bwd), y (unpool_fwd)
+//   full_out   full-resolution output: the mask (pool_mask_fwd), gx, out
+//   pooled_out pooled output: pooled (pool_mask_fwd), gy (unpool_bwd)
+// The pool pair: block (tj, y) takes the tile (tj, rp) of row pair rp = y,
+// and y + gridDim.y, ... where there are more row pairs than a grid has
+// rows. The unpool pair: block (tj, y, z) takes packs [tj * tile_w, +tile_w)
+// of row pair rp = z * gridDim.y + y, one a thread (tile_w = blockDim.x).
+template <Op kOp, typename T, int N, bool kExact>
+__global__ void tiled_kernel(const T* __restrict__ full,
+                             const T* __restrict__ mask,
+                             const T* __restrict__ pooled_in,
+                             T* __restrict__ full_out,
+                             T* __restrict__ pooled_out, Tiling a) {
+  if constexpr (kStaged<kOp>) {
+    for (int rp = blockIdx.y; rp < a.rows; rp += gridDim.y)
+      staged_tile<kOp, T, N, kExact>(full, pooled_in, full_out, pooled_out,
+                                     tile_of(blockIdx.x, rp, a), a);
   } else {
-    Launch<float>::run(blocks, s, p0, p1, p2, total, h, w, c);
+    const int64_t rp = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+    if (rp < a.rows)
+      direct_pack<kOp, T, N>(full, mask, pooled_in, full_out, pooled_out, rp,
+                             blockIdx.x * blockDim.x + threadIdx.x, a);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// The tensors of one launch, by their role in tiled_kernel.
+struct Ptrs {
+  const void *full, *mask, *pooled_in;
+  void *full_out, *pooled_out;
+};
 
 template <typename T>
 const T* in(const void* p) { return static_cast<const T*>(p); }
 
 template <typename T>
-T* out(const void* p) { return static_cast<T*>(const_cast<void*>(p)); }
+T* out(void* p) { return static_cast<T*>(p); }
 
-// The tiled kernels: the wrapper's tiling arrives as plain integers. Above
-// 48 KB of dynamic shared memory a kernel must be allowed it first.
-template <typename Kernel, typename... Args>
-cudaError_t launch_tiled(Kernel kernel, dim3 grid, int threads, int smem_bytes,
-                         cudaStream_t s, Args... args) {
+// Above 48 KB of dynamic shared memory a kernel must be allowed it first.
+template <Op kOp, typename T, int N, bool kExact>
+cudaError_t launch(const Ptrs& p, const Tiling& a, dim3 grid, int threads,
+                   int smem_bytes, cudaStream_t s) {
+  const auto kernel = tiled_kernel<kOp, T, N, kExact>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, threads, smem_bytes, s>>>(args...);
+  kernel<<<grid, threads, smem_bytes, s>>>(
+      in<T>(p.full), in<T>(p.mask), in<T>(p.pooled_in), out<T>(p.full_out),
+      out<T>(p.pooled_out), a);
   return cudaSuccess;
-}
-
-template <typename T, int N, bool kExact>
-cudaError_t run_tiled(bool bwd, const void* p0, const void* p1, const void* p2,
-                      const Tiling& a, dim3 grid, int threads, int smem_bytes,
-                      cudaStream_t s) {
-  if (bwd)  // x, g, gx
-    return launch_tiled(pool_tiled_kernel<T, N, true, kExact>, grid, threads,
-                        smem_bytes, s, in<T>(p0), out<T>(p1), out<T>(p2), a);
-  // x, pooled, mask
-  return launch_tiled(pool_tiled_kernel<T, N, false, kExact>, grid, threads,
-                      smem_bytes, s, in<T>(p0), out<T>(p1), out<T>(p2), a);
-}
-
-template <typename T, int N>
-cudaError_t run_tiled(bool bwd, const void* p0, const void* p1, const void* p2,
-                      const Tiling& a, dim3 grid, int threads, int smem_bytes,
-                      cudaStream_t s) {
-  return a.vec == 2 ? run_tiled<T, N, true>(bwd, p0, p1, p2, a, grid, threads,
-                                            smem_bytes, s)
-                    : run_tiled<T, N, false>(bwd, p0, p1, p2, a, grid,
-                                             threads, smem_bytes, s);
 }
 
 // Whether the wrapper's tiling fits the shape, so the kernel neither misses
 // nor overruns an element: the tiles of a row reach its end with none left
-// empty, the buffers fit in smem_bytes, the magic divides exactly by c / N
-// for every pack of a tile, and 16-byte accesses are only asked of aligned
-// pointers (vec >= 1) and of spans that are whole vectors (vec == 2).
-template <typename T>
-bool tiling_fits(const void* const (&ptrs)[3], const Tiling& a, int threads,
-                 int smem_bytes, int pack) {
+// empty, and the magic divides exactly by c / N for every pack of a row.
+// The pool pair's buffers fit in smem_bytes, and its 16-byte accesses are
+// only asked of aligned pointers (vec >= 1) and of spans that are whole
+// vectors (vec == 2). The unpool pair takes one pack a thread (threads ==
+// tile_w), no shared memory and no 16-byte access (vec == 0), and a pack
+// of two only of pointers aligned to it.
+template <Op kOp, typename T>
+bool tiling_fits(const Ptrs& p, const Tiling& a, int tiles_per_row,
+                 int threads, int smem_bytes, int pack) {
   constexpr int64_t V = kVec<T>;
   if (a.tile_w <= 0 || threads <= 0 || threads > 1024 || pack <= 0 ||
-      a.c % pack != 0 || a.vec < 0 || a.vec > 2)
+      a.c % pack != 0 || a.vec < 0 || a.vec > (kStaged<kOp> ? 2 : 0))
     return false;
-  const int64_t tiles_per_row = (a.w + a.tile_w - 1) / a.tile_w;
-  const int64_t last_w = a.w - (tiles_per_row - 1) * a.tile_w;
-  const int64_t m = static_cast<int64_t>(a.tile_w) * a.c;  // a whole tile
-  if (2 * m + 2 * V > INT32_MAX) return false;
-  if (smem_bytes < static_cast<int64_t>(sizeof(T)) *
-                       (2 * buffer_elems<T>(2 * m) + buffer_elems<T>(m)))
-    return false;
+  const int64_t wc = static_cast<int64_t>(a.w) * a.c;  // one pooled row
   const int64_t cn = a.c / pack;
-  if (cn > 1 && (m * cn >= (int64_t{1} << 32) ||
+  const int64_t m = static_cast<int64_t>(a.tile_w) * a.c;  // a staged tile
+  // the packs the magic divides: at most m in a staged tile; a
+  // full-resolution row's (unpool_fwd) or the pooled row's (unpool_bwd)
+  const int64_t packs = kStaged<kOp> ? m
+                        : (kOp == Op::kUnpoolFwd ? 2 : 1) * wc / pack;
+  if (kStaged<kOp>) {
+    if (tiles_per_row != (a.w + a.tile_w - 1) / a.tile_w ||
+        2 * m + 2 * V > INT32_MAX ||
+        smem_bytes < static_cast<int64_t>(sizeof(T)) *
+                         (2 * buffer_elems<T>(2 * m) + buffer_elems<T>(m)))
+      return false;
+  } else if (threads != a.tile_w || smem_bytes != 0 || 2 * wc > INT32_MAX ||
+             tiles_per_row != (packs + a.tile_w - 1) / a.tile_w) {
+    return false;
+  }
+  if (cn > 1 && (packs * cn >= (int64_t{1} << 32) ||
                  a.magic != static_cast<unsigned>(((int64_t{1} << 32) + cn - 1) / cn)))
     return false;
-  if (a.vec >= 1)
-    for (const void* p : ptrs)
-      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  if (a.vec == 2 &&
-      ((static_cast<int64_t>(a.w) * a.c) % V != 0 || m % V != 0 || (last_w * a.c) % V != 0))
+  // the pool pair's packs live in shared memory, the unpool pair's in the
+  // tensors themselves
+  const uintptr_t align = a.vec >= 1 ? 16 : kStaged<kOp> ? 1 : pack * sizeof(T);
+  for (const void* q : {p.full, p.mask, p.pooled_in,
+                        static_cast<const void*>(p.full_out),
+                        static_cast<const void*>(p.pooled_out)})
+    if (reinterpret_cast<uintptr_t>(q) % align != 0) return false;
+  const int64_t tiles = (a.w + a.tile_w - 1) / a.tile_w;
+  const int64_t last_w = a.w - (tiles - 1) * a.tile_w;
+  if (a.vec == 2 && (wc % V != 0 || m % V != 0 || (last_w * a.c) % V != 0))
     return false;
   return true;
 }
 
-template <typename T>
-cudaError_t run_tiled(int pack, bool bwd, const void* p0, const void* p1,
-                      const void* p2, const Tiling& a, dim3 grid, int threads,
-                      int smem_bytes, cudaStream_t s) {
-  const void* const ptrs[3] = {p0, p1, p2};
-  if (!tiling_fits<T>(ptrs, a, threads, smem_bytes, pack) ||
-      grid.x != static_cast<unsigned>((a.w + a.tile_w - 1) / a.tile_w))
+template <Op kOp, typename T, int N>
+cudaError_t run(const Ptrs& p, const Tiling& a, dim3 grid, int threads,
+                int smem_bytes, cudaStream_t s) {
+  if constexpr (kStaged<kOp>)  // the unpool pair has no edge code to drop
+    if (a.vec == 2)
+      return launch<kOp, T, N, true>(p, a, grid, threads, smem_bytes, s);
+  return launch<kOp, T, N, false>(p, a, grid, threads, smem_bytes, s);
+}
+
+template <Op kOp, typename T>
+cudaError_t run(const Ptrs& p, int pack, const Tiling& a, dim3 grid,
+                int threads, int smem_bytes, cudaStream_t s) {
+  if (!tiling_fits<kOp, T>(p, a, static_cast<int>(grid.x), threads,
+                           smem_bytes, pack))
     return cudaErrorInvalidValue;
   switch (pack) {
     case 2:
-      return run_tiled<T, 2>(bwd, p0, p1, p2, a, grid, threads, smem_bytes, s);
+      return run<kOp, T, 2>(p, a, grid, threads, smem_bytes, s);
     case 1:
-      return run_tiled<T, 1>(bwd, p0, p1, p2, a, grid, threads, smem_bytes, s);
+      return run<kOp, T, 1>(p, a, grid, threads, smem_bytes, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int dispatch_tiled(bool bwd, const void* p0, const void* p1, const void* p2,
-                   int64_t n, int64_t h, int64_t w, int64_t c, int is_bf16,
-                   int device, void* stream, int tile_w, int tiles_per_row,
-                   int grid_rows, int threads, int smem_bytes, int vec,
-                   int pack, unsigned magic) {
+template <Op kOp>
+int enter(const Ptrs& p, int64_t n, int64_t h, int64_t w, int64_t c,
+             int is_bf16, int device, void* stream, int tile_w,
+             int tiles_per_row, int grid_rows, int threads, int smem_bytes,
+             int vec, int pack, unsigned magic) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows = n * h;
@@ -616,80 +715,65 @@ int dispatch_tiled(bool bwd, const void* p0, const void* p1, const void* p2,
     return static_cast<int>(cudaErrorInvalidValue);
   const Tiling a{static_cast<int>(rows), static_cast<int>(w),
                  static_cast<int>(c), tile_w, vec, magic};
-  const dim3 grid(tiles_per_row, grid_rows);
+  // the pool pair loops over row pairs beyond the grid's rows, the unpool
+  // pair takes them in its third dimension (rows < 65535^2: no limit)
+  const int64_t layers = kStaged<kOp> ? 1 : (rows + grid_rows - 1) / grid_rows;
+  const dim3 grid(tiles_per_row, grid_rows, static_cast<unsigned>(layers));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? run_tiled<__nv_bfloat16>(pack, bwd, p0, p1, p2, a, grid,
-                                           threads, smem_bytes, s)
-                : run_tiled<float>(pack, bwd, p0, p1, p2, a, grid, threads,
-                                   smem_bytes, s);
+  err = is_bf16 ? run<kOp, __nv_bfloat16>(p, pack, a, grid, threads,
+                                          smem_bytes, s)
+                : run<kOp, float>(p, pack, a, grid, threads, smem_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
-
-template <typename T>
-struct UnpoolFwd {  // y, mask, out
-  static void run(unsigned blocks, cudaStream_t s, const void* p0,
-                  const void* p1, const void* p2, int64_t total, int64_t h,
-                  int64_t w, int64_t c) {
-    unpool_fwd_kernel<T><<<blocks, kThreads, 0, s>>>(
-        in<T>(p0), in<T>(p1), out<T>(p2), total, h, w, c);
-  }
-};
-
-template <typename T>
-struct UnpoolBwd {  // g, mask, gy
-  static void run(unsigned blocks, cudaStream_t s, const void* p0,
-                  const void* p1, const void* p2, int64_t total, int64_t h,
-                  int64_t w, int64_t c) {
-    unpool_bwd_kernel<T><<<blocks, kThreads, 0, s>>>(
-        in<T>(p0), in<T>(p1), out<T>(p2), total, h, w, c);
-  }
-};
 
 }  // namespace
 
 // All sizes are those of the pooled (half-resolution) tensor: the
 // full-resolution tensors are (n, 2h, 2w, c). is_bf16 selects
 // __nv_bfloat16 over float; device is the CUDA ordinal of every pointer.
+// The last eight arguments are the tiling from
+// ops/pool_kernels.py:pool_tiling.
 extern "C" {
 
-// x (n,2h,2w,c) -> pooled (n,h,w,c), mask (n,2h,2w,c). The last eight
-// arguments are the tiling from ops/pool_kernels.py:pool_tiling.
+#define TILING_ARGS                                                          \
+  int tile_w, int tiles_per_row, int grid_rows, int threads, int smem_bytes, \
+      int vec, int pack, unsigned magic
+#define TILING tile_w, tiles_per_row, grid_rows, threads, smem_bytes, vec, pack, magic
+
+// x (n,2h,2w,c) -> pooled (n,h,w,c), mask (n,2h,2w,c)
 int pool_mask_fwd(const void* x, void* pooled, void* mask, int64_t n,
                   int64_t h, int64_t w, int64_t c, int is_bf16, int device,
-                  void* stream, int tile_w, int tiles_per_row, int grid_rows,
-                  int threads, int smem_bytes, int vec, int pack,
-                  unsigned magic) {
-  return dispatch_tiled(false, x, pooled, mask, n, h, w, c, is_bf16, device,
-                        stream, tile_w, tiles_per_row, grid_rows, threads,
-                        smem_bytes, vec, pack, magic);
+                  void* stream, TILING_ARGS) {
+  return enter<Op::kPoolFwd>({x, nullptr, nullptr, mask, pooled}, n, h, w,
+                                c, is_bf16, device, stream, TILING);
 }
 
-// x (n,2h,2w,c), g (n,h,w,c) -> gx (n,2h,2w,c); tiling as above.
+// x (n,2h,2w,c), g (n,h,w,c) -> gx (n,2h,2w,c)
 int pool_mask_bwd(const void* x, const void* g, void* gx, int64_t n,
                   int64_t h, int64_t w, int64_t c, int is_bf16, int device,
-                  void* stream, int tile_w, int tiles_per_row, int grid_rows,
-                  int threads, int smem_bytes, int vec, int pack,
-                  unsigned magic) {
-  return dispatch_tiled(true, x, g, gx, n, h, w, c, is_bf16, device, stream,
-                        tile_w, tiles_per_row, grid_rows, threads, smem_bytes,
-                        vec, pack, magic);
+                  void* stream, TILING_ARGS) {
+  return enter<Op::kPoolBwd>({x, nullptr, g, gx, nullptr}, n, h, w, c,
+                                is_bf16, device, stream, TILING);
 }
 
 // y (n,h,w,c), mask (n,2h,2w,c) -> out (n,2h,2w,c)
 int unpool_fwd(const void* y, const void* mask, void* out, int64_t n,
                int64_t h, int64_t w, int64_t c, int is_bf16, int device,
-               void* stream) {
-  return dispatch<UnpoolFwd>(y, mask, out, n, h, w, c, is_bf16, device,
-                             stream);
+               void* stream, TILING_ARGS) {
+  return enter<Op::kUnpoolFwd>({mask, nullptr, y, out, nullptr}, n, h, w,
+                                  c, is_bf16, device, stream, TILING);
 }
 
 // g (n,2h,2w,c), mask (n,2h,2w,c) -> gy (n,h,w,c)
 int unpool_bwd(const void* g, const void* mask, void* gy, int64_t n,
                int64_t h, int64_t w, int64_t c, int is_bf16, int device,
-               void* stream) {
-  return dispatch<UnpoolBwd>(g, mask, gy, n, h, w, c, is_bf16, device,
-                             stream);
+               void* stream, TILING_ARGS) {
+  return enter<Op::kUnpoolBwd>({g, mask, nullptr, nullptr, gy}, n, h, w, c,
+                                  is_bf16, device, stream, TILING);
 }
+
+#undef TILING
+#undef TILING_ARGS
 
 }  // extern "C"

@@ -16,24 +16,27 @@ Kernels (see the header of ``csrc/pool_mask.cu`` for their semantics):
   and the pooled gradient read, the input gradient written. It recomputes
   the two inner maxima from the saved x rather than saving them, so the
   forward writes nothing extra.
-
-  Both work on row-pair tiles: a tile is a run of pooled columns of one
-  pooled row, whose two input rows and one pooled row are three contiguous
-  spans. A block stages them in shared memory with 16-byte ``cp.async``
-  copies, computes the windows there two channels at a time (bf16 pairs as
-  32-bit SIMD words), and writes pooled, mask or gx back as 16-byte
-  vectors; a span's unaligned head and tail go one element a thread inside
-  the same kernel. :func:`pool_tiling` computes the launch (tile width,
-  grid, threads, shared memory, pack, the magic multiplier that replaces
-  the division by C, and whether every span is whole 16-byte vectors), once
-  per shape; the C entry points reject a tiling that does not fit the
-  shape. On the main path: 2,048 blocks of 128 threads at each shape,
-  2.3–5.2 KB of shared memory a block, 20–28 registers a thread
-  (``-Xptxas -v`` on an H100).
 * ``unpool_fwd`` replaces ``_unpool_kernel`` / ``mask_unpool_2x2_pallas``.
   Bound: bytes, y and the mask read, the output written.
 * ``unpool_bwd`` replaces JAX's autodiff of the unpool. Bound: bytes, the
   output gradient and the mask read, the y gradient written.
+
+All four are one kernel template on row pairs, whose two full-resolution
+rows and one pooled row are contiguous spans of each tensor. The pool pair
+stages a tile (a run of pooled columns of one row pair) in shared memory
+with 16-byte ``cp.async`` copies, computes the windows there two channels
+at a time (bf16 pairs as 32-bit SIMD words), and writes pooled, mask or gx
+back as 16-byte vectors; a span's unaligned head and tail go one element a
+thread inside the same kernel. The unpool pair loads and stores one pack of
+channels a thread straight from and to the tensors, with no shared memory
+and no loop, so all of a thread's loads are in flight at once.
+:func:`pool_tiling` computes the launch (tile, grid, threads, shared
+memory, pack, the magic multiplier that replaces the division by C, and
+whether every span is whole 16-byte vectors), once per kernel and shape;
+the C entry points reject a tiling that does not fit the shape. On the main
+path: 2,048 blocks of 128 threads at each shape (unpool_fwd: 4,096 and
+3,584), 2.3–5.2 KB of shared memory a pool block, 16–28 registers a thread
+(``-Xptxas -v`` on an H100).
 
 ``LAUNCHES`` counts, per kernel, the launches this process has made; a run
 resets it with :func:`reset_launch_counts` to show which kernels a path used.
@@ -63,14 +66,18 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-TILED = ("pool_mask_fwd", "pool_mask_bwd")   # take the tiling arguments
+# the kernels that stage their tiles in shared memory; the unpool pair loads
+# and stores one pack a thread straight from and to the tensors
+STAGED = ("pool_mask_fwd", "pool_mask_bwd")
 
 VEC_BYTES = 16            # one cp.async / uint4 access
-TILE_ELEMS = 256          # pooled elements a tile aims at
+TILE_ELEMS = 256          # pooled elements a staged tile aims at
 ELEMS_PER_THREAD = 2      # pooled elements each thread computes per tile
+DIRECT_THREADS = 128      # unpool pair: packs (one a thread) per block
 SMEM_DEFAULT = 49_152     # dynamic shared memory a block gets unasked
 SMEM_MAX = 232_448        # and at most, once the kernel is allowed it (H100)
-GRID_Y_MAX = 65_535       # row pairs per launch; the kernel loops beyond
+GRID_Y_MAX = 65_535       # row pairs a grid layer covers: the pool pair loops
+                          # beyond, the unpool pair adds layers (grid z)
 INT32_MAX = 2**31 - 1
 
 _lib = None
@@ -78,20 +85,22 @@ _lock = threading.Lock()
 
 
 class PoolTiling(NamedTuple):
-    """Launch of pool_mask_fwd / pool_mask_bwd for one pooled shape, in the
-    order of the C entry points' trailing arguments."""
-    tile_w: int           # pooled columns per tile (a row's last may be fewer)
+    """Launch of one kernel at one pooled shape, in the order of the C entry
+    points' trailing arguments."""
+    tile_w: int           # pool pair: pooled columns per tile (a row's last
+                          # may be fewer); unpool pair: packs per tile
     tiles_per_row: int    # grid x
     grid_rows: int        # grid y: row pairs n * h, at most GRID_Y_MAX
     threads: int
     smem_bytes: int       # dynamic shared memory per block
     vec: int              # 0: scalar; 1: 16-byte accesses on each span's
                           # aligned body; 2: every span whole 16-byte vectors
-    pack: int             # channels per shared-memory access: 2 or 1
+    pack: int             # channels per access of the window math: 2 or 1
     magic: int            # ceil(2**32 / (c // pack)): division by multiply
 
     @property
     def blocks(self) -> int:
+        """Blocks of one grid layer (all of them up to GRID_Y_MAX row pairs)."""
         return self.tiles_per_row * self.grid_rows
 
 
@@ -106,21 +115,40 @@ def _buffer_elems(length: int, v: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def pool_tiling(pooled_shape: Tuple[int, int, int, int], esize: int,
-                aligned: bool = True) -> PoolTiling:
-    """Cut each pooled row into tiles of about TILE_ELEMS elements, as even
-    as the row allows, each tile's width a multiple of the columns that fill
-    whole 16-byte vectors where C allows it; give each thread about
-    ELEMS_PER_THREAD pooled elements. ``aligned``: every pointer is 16-byte
-    aligned, so the aligned body of a span may use 16-byte accesses. Raises
-    ValueError for what one launch cannot cover. Memoised: a training step
-    launches the same few shapes over and over."""
+def pool_tiling(kernel: str, pooled_shape: Tuple[int, int, int, int],
+                esize: int, aligned: bool = True) -> PoolTiling:
+    """Launch of ``kernel`` (one of KERNELS) at one pooled shape; ``aligned``:
+    every pointer is 16-byte aligned. Raises ValueError for what one launch
+    cannot cover. Memoised: a training step launches the same few shapes
+    over and over.
+
+    The pool pair (STAGED) cuts each pooled row into tiles of about
+    TILE_ELEMS elements, as even as the row allows, each tile's width a
+    multiple of the columns that fill whole 16-byte vectors where C allows
+    it, and gives each thread about ELEMS_PER_THREAD pooled elements; where
+    ``aligned``, the aligned body of each span goes in 16-byte accesses.
+    The unpool pair takes one pack a thread, DIRECT_THREADS a block: a tile
+    is that many packs of one row pair (of each full-resolution row for
+    unpool_fwd, of the pooled row for unpool_bwd); it reads and writes
+    channel pairs in place only where ``aligned``."""
     n, h, w, c = pooled_shape
     v = VEC_BYTES // esize
-    pack = 2 if c % 2 == 0 else 1
+    staged = kernel in STAGED
+    pack = 2 if c % 2 == 0 and (staged or aligned) else 1
     magic = _cdiv(2**32, c // pack) if c // pack > 1 else 0
     if n * h * w * c == 0:
-        return PoolTiling(1, 0, 0, 32, 0, int(aligned), pack, magic)
+        return PoolTiling(1, 0, 0, 32, 0, int(staged and aligned), pack, magic)
+    if n * h > INT32_MAX or w > INT32_MAX:
+        raise ValueError(f"pooled shape {pooled_shape} is too large for one "
+                         "launch")
+    if not staged:
+        packs = (2 if kernel == "unpool_fwd" else 1) * w * c // pack
+        threads = min(DIRECT_THREADS, _cdiv(packs, 32) * 32)
+        if 2 * w * c > INT32_MAX or packs * (c // pack) >= 2**32:
+            raise ValueError(f"pooled shape {pooled_shape} is too large for "
+                             "one launch")
+        return PoolTiling(threads, _cdiv(packs, threads),
+                          min(n * h, GRID_Y_MAX), threads, 0, 0, pack, magic)
     per_vec = VEC_BYTES // math.gcd(VEC_BYTES, c * esize)   # columns
     tiles_per_row = _cdiv(w, max(1, TILE_ELEMS // c))
     tile_w = min(w, _cdiv(_cdiv(w, tiles_per_row), per_vec) * per_vec)
@@ -133,8 +161,7 @@ def pool_tiling(pooled_shape: Tuple[int, int, int, int], esize: int,
     if smem > SMEM_MAX:
         raise ValueError(f"C = {c} needs {smem} bytes of shared memory for one "
                          f"pooled column, more than a block has ({SMEM_MAX})")
-    if (n * h > INT32_MAX or w > INT32_MAX or tiles_per_row > INT32_MAX
-            or tile_w * c * (c // pack) >= 2**32):
+    if tile_w * c * (c // pack) >= 2**32:
         raise ValueError(f"pooled shape {pooled_shape} is too large for one "
                          "launch")
     return PoolTiling(tile_w, tiles_per_row, min(n * h, GRID_Y_MAX), threads,
@@ -183,8 +210,7 @@ def build() -> str:
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                           + ([ctypes.c_int] * 7 + [ctypes.c_uint]
-                              if name in TILED else []))
+                           + [ctypes.c_int] * 7 + [ctypes.c_uint])
             fn.restype = ctypes.c_int
         _lib = lib
         return log
@@ -199,10 +225,8 @@ def _launch(name: str, p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     n, h, w, c = pooled_shape
     ptrs = (p0.data_ptr(), p1.data_ptr(), p2.data_ptr())
-    tiling = ()
-    if name in TILED:
-        tiling = pool_tiling(tuple(pooled_shape), p0.element_size(),
-                             all(p % VEC_BYTES == 0 for p in ptrs))
+    tiling = pool_tiling(name, tuple(pooled_shape), p0.element_size(),
+                         all(p % VEC_BYTES == 0 for p in ptrs))
     rc = getattr(_lib, name)(*ptrs, n, h, w, c, int(p0.dtype == torch.bfloat16),
                              dev.index, stream, *tiling)
     if rc != 0:

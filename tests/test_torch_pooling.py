@@ -104,6 +104,37 @@ def test_unpool_gradient_matches_jax(shape):
     assert_exact(got, ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unpool_gradient_nan_inf_at_masked_out_corners(dtype):
+    """The unpool's backward multiplies every corner by its mask, the
+    masked-out ones too: a NaN or an inf in g where the mask is 0 makes that
+    window's gy NaN, in dct_tpu and in the plain version (and the CPU path of
+    the kernel's wrapper) that the CUDA kernel is held to."""
+    shape = (2, 4, 6, 14)
+    x = tie_dense(shape, 9)
+    mask = np.array(jax_pooling.max_pool_2x2_with_mask(jnp.asarray(x))[1])
+    b, h, w, c = shape
+    y = np.random.RandomState(10).randint(-3, 4, (b, h // 2, w // 2, c)).astype(np.float32)
+    g = np.random.RandomState(11).randint(-3, 4, shape).astype(np.float32)
+    hidden = np.flatnonzero(mask == 0)[[0, -1]]          # two masked-out corners
+    g.flat[hidden[0]], g.flat[hidden[1]] = np.nan, np.inf
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jax.grad(lambda t: jnp.sum(
+        jax_pooling.mask_unpool_2x2(t, jnp.asarray(mask, jdt)) * jnp.asarray(g, jdt)))(
+        jnp.asarray(y, jdt))
+    ref = np.asarray(ref, np.float32)
+    for fn in (pooling.mask_unpool_2x2, pool_kernels.mask_unpool_2x2_kernel):
+        yt = torch.from_numpy(y).to(tdt).requires_grad_(True)
+        (got,) = torch.autograd.grad(fn(yt, torch.from_numpy(mask).to(tdt)), yt,
+                                     torch.from_numpy(g).to(tdt))
+        assert got.dtype == tdt
+        assert_exact(got.float(), ref)
+    for f in hidden:
+        i, r, col, ch = np.unravel_index(f, shape)
+        assert np.isnan(ref[i, r // 2, col // 2, ch])
+    assert np.isfinite(ref).sum() == ref.size - 2
+
+
 def test_kernel_wrappers_take_plain_path_on_cpu():
     x = torch.from_numpy(tie_dense((2, 8, 8, 14), 8)).requires_grad_(True)
     before = dict(pool_kernels.LAUNCHES)
