@@ -15,20 +15,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at ragged shapes (spans off 16 bytes, odd w·c) and from pointers off 16
    bytes, which run the kernels' scalar edge path, at 4096 channels (over
    48 KB of shared memory a block in fp32) and at more row pairs than a
-   grid has rows. Then each is timed with CUDA events beside its byte
+   grid has rows; and at the eval step's shapes, one padded patient bucket
+   of 16 slices a forward. Then each is timed with CUDA events beside its byte
    bound, one PyTorch library call that computes the same function and a
    ``copy_`` that moves as many bytes; a near-empty kernel is timed the
    same way: the launch floor.
 3. Two full-width ENets (4 classes) take 3 co-training iterations in fp32
-   (jsd, adv, augmentation on; TF32 off) on a synthetic 1674×256×256 uint8
-   dataset; losses must be finite and the kernel counters must show 24
-   forward and 24 backward launches per iteration. One train-mode forward
-   and input gradient on the card is held against the same net in float64
-   on the CPU.
+   (jsd, adv, augmentation on; PyTorch's precision defaults, as the CLI
+   runs) on a synthetic 1674×256×256 uint8 dataset; losses must be finite
+   and the kernel counters must show 24 forward and 24 backward launches
+   per iteration. One train-mode forward and input gradient on the card
+   (TF32 off for this comparison only) is held against the same net in
+   float64 on the CPU.
 4. ``bench.py``'s workload in bf16 (K=2, 4+4 images, 256², jsd + FGSM,
    augmentation): warm-up, then 30 timed iterations → images/s; then 3
    iterations under ``torch.profiler``, whose table of device and host
    time by op goes to ``chiprun_out/profile_bf16.txt``.
+
+5. The co-training CLI at full width: ``dct_tpu_torch.train_cotraining``
+   on ``configs/acdc_cotraining.yaml`` as it ships (fp32, two full ENets,
+   K=2, B=Bu=4, 256²) with jsd and FGSM on, over a synthetic ACDC-style PNG
+   tree written under ``build/`` from a seed (100 train patients × 16
+   slices, 20 val patients of 8–16 slices), 2 epochs of 20 iterations, then
+   a resume from its checkpoints to epoch 3. Losses must be finite, the CSV
+   must carry dct_tpu's columns (the header of
+   ``results/ACDC_cotrain_r3/metrics.csv``) for epochs 0–2, every val dice
+   must lie in [0, 1], the checkpoints must exist, ``best_0.ckpt`` reloaded
+   into a fresh Segmentator must reproduce its epoch's CSV 3D dice, and each
+   eval forward must launch ``pool_mask_fwd`` and ``unpool_fwd`` twice and
+   no backward kernel. Then the trained weights of
+   ``results/ACDC_cotrain_r3/best_0.ckpt`` run one eval-mode forward on the
+   card over one padded 16-slice val bucket (the shape the eval step
+   launches; TF32 off for this comparison only), held against the same net
+   in float64 on the CPU.
 
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
@@ -36,6 +55,7 @@ no CUDA device is present or the ``dct_tpu_torch`` package is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -52,6 +72,11 @@ POOL_SHAPES = [((N_IMG, 128, 128, 14), "bottleneck_1_0"),
                ((N_IMG, 64, 64, 64), "bottleneck_2_0")]
 UNPOOL_SHAPES = [((N_IMG, 32, 32, 64), "bottleneck_4_0"),
                  ((N_IMG, 64, 64, 14), "bottleneck_5_0")]
+# the eval step's forwards: one patient bucket, the slices of the longest
+# val patient (16 in phase 5's tree, as in ACDC) padded to a multiple of 8
+EVAL_L = 16
+EVAL_POOL_SHAPES = [(EVAL_L,) + shape[1:] for shape, _ in POOL_SHAPES]
+EVAL_UNPOOL_SHAPES = [(EVAL_L,) + shape[1:] for shape, _ in UNPOOL_SHAPES]
 # full-resolution shapes (the pool's input, the unpool's mask and output)
 # whose spans are not whole 16-byte vectors (pooled w·c odd in the fourth;
 # the fifth runs channel pairs with a head and a tail); one pooled column of
@@ -208,6 +233,10 @@ def check_kernels(torch, pk, plain):
         for check in (check_pool_exact, check_unpool_exact):
             check(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype, errs,
                   offset=1)
+        for shape in EVAL_POOL_SHAPES:
+            check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
+        for n, h, w, c in EVAL_UNPOOL_SHAPES:
+            check_unpool_exact(torch, pk, plain, ints, (n, 2 * h, 2 * w, c), dtype, errs)
         for shape, where in POOL_SHAPES:
             n, hh, ww, c = shape
             small = (n, hh // 2, ww // 2, c)
@@ -355,6 +384,21 @@ def run_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, T, gen):
     return m, dt, launches
 
 
+@contextlib.contextmanager
+def tf32_off(torch):
+    """TF32 off for cuDNN and matmuls inside, the flags restored after: the
+    float64 comparisons hold the card's fp32 arithmetic, not TF32's."""
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    old = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, old):
+            f.allow_tf32 = v
+
+
 def check_reference(torch, Enet, ce):
     """One train-mode forward + CE input gradient on the card (fp32, TF32
     off, CUDA kernels) against the same weights in float64 on the CPU."""
@@ -370,8 +414,9 @@ def check_reference(torch, Enet, ce):
         m.load_state_dict(net.state_dict())
         m = m.to(dev, dt, memory_format=torch.channels_last).train()
         xx = x.to(dev, dt).requires_grad_(True)
-        logits = m(xx)
-        (g,) = torch.autograd.grad(ce(logits, gt.to(dev)), [xx])
+        with tf32_off(torch):
+            logits = m(xx)
+            (g,) = torch.autograd.grad(ce(logits, gt.to(dev)), [xx])
         out[dev] = (logits.detach().cpu().double(), g.cpu().double())
     errs = {}
     for i, name in enumerate(("logits", "input_grad")):
@@ -405,13 +450,12 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     detail, errs = check_kernels(torch, pk, plain)
     print("phase 2: 4 kernels bit-equal to their plain versions "
           "(fp32, bf16, ties, NaN window, NaN in y, NaN and inf in g at "
-          "masked-out corners; at the main-path shapes, at ragged shapes "
-          f"{RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
+          "masked-out corners; at the main-path shapes, at the eval shapes "
+          f"{EVAL_POOL_SHAPES} (pool) and {EVAL_UNPOOL_SHAPES} (unpool), at "
+          f"ragged shapes {RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
     print(json.dumps({"kernel_detail": detail, "card": card}), flush=True)
     print(json.dumps({"launch_floor_ms": launch_floor_ms(torch), "card": card}),
           flush=True)
@@ -448,6 +492,9 @@ def main() -> int:
                       "card": card}), flush=True)
 
     profile_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8, rs, gen)
+    del segs, img_u8, gt_u8
+
+    cli = run_cli(torch, pk, card)
 
     kernels = []
     for name in pk.KERNELS:
@@ -460,13 +507,201 @@ def main() -> int:
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
-            "library_ms": sum(r["library_ms"] for r in rows)})
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "launches_cli": cli["launches"][name],
+            "launches_eval": cli["eval_launches"][name]})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def write_acdc_tree(root: Path, seed: int = 0) -> None:
+    """An ACDC-style PNG tree, root/{train,val}/{img,gt}/patientPPP_01_0_S.png
+    at 256²: concentric rings (gt) and a noisy rendering of them (img), so a
+    segmenter can learn the mapping. 100 train patients × 16 slices; 20 val
+    patients of 8–16 slices, unequal so that the eval buckets pad."""
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    size, n_classes = 256, 4
+    yy, xx = np.mgrid[0:size, 0:size]
+    for mode, counts in (("train", [16] * 100),
+                         ("val", rs.randint(8, 17, size=20).tolist())):
+        for sub in ("img", "gt"):
+            (root / mode / sub).mkdir(parents=True, exist_ok=True)
+        for p, n_slices in enumerate(counts, start=1):
+            for s in range(n_slices):
+                cy, cx = size / 2 + rs.randint(-24, 25), size / 2 + rs.randint(-24, 25)
+                r = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+                gt = np.zeros((size, size), np.uint8)
+                for c in range(1, n_classes):
+                    gt[r < size * (0.4 - 0.1 * (c - 1))] = c
+                img = (gt.astype(np.float32) / (n_classes - 1) * 180
+                       + rs.randn(size, size) * 12 + 40).clip(0, 255).astype(np.uint8)
+                stem = f"patient{p:03d}_01_0_{s}"
+                Image.fromarray(img).save(root / mode / "img" / f"{stem}.png")
+                Image.fromarray(gt).save(root / mode / "gt" / f"{stem}.png")
+
+
+def run_cli(torch, pk, card: str) -> dict:
+    """Phase 5: the co-training CLI at full width, two epochs and a resume
+    to a third, checked as the module docstring says. Returns the launches
+    of the whole run and of its eval passes."""
+    import csv
+    import shutil
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.data.dataset import MedicalImageDataset
+    from dct_tpu_torch.data.pipeline import PatientBuckets
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train import CoTrainer
+    from dct_tpu_torch.train import cotrainer as cot
+    from dct_tpu_torch.train.steps import make_eval_all_models_step
+    from dct_tpu_torch.train_cotraining import main as cli_main
+
+    tree, run = Path("build/acdc_synthetic"), Path("build/cli_run")
+    t0 = time.perf_counter()
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.rmtree(run, ignore_errors=True)
+    write_acdc_tree(tree)
+    print(f"phase 5: wrote the synthetic tree in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # per-epoch wall time and the launches of each eval pass, read around
+    # the trainer's own methods
+    epochs, eval_launches = [], {k: 0 for k in pk.KERNELS}
+    eval_forwards = [0]
+    run_epoch, eval_epoch = CoTrainer._run_epoch, CoTrainer._eval_epoch
+
+    def timed_run_epoch(self, epoch, *args):
+        t = time.perf_counter()
+        run_epoch(self, epoch, *args)
+        epochs.append((epoch, time.perf_counter() - t))
+
+    def counted_eval_epoch(self, *args):
+        before = dict(pk.LAUNCHES)
+        out = eval_epoch(self, *args)
+        torch.cuda.synchronize()
+        for k in pk.KERNELS:
+            eval_launches[k] += pk.LAUNCHES[k] - before[k]
+        eval_forwards[0] += len(self.val_buckets) * self.K
+        return out
+
+    common = ["--config", "configs/acdc_cotraining.yaml",
+              f"Dataset.root_dir={tree}", f"Trainer.save_dir={run}",
+              "Trainer.iters_per_epoch=20", "StartTraining.train_jsd=True",
+              "StartTraining.train_adv=True"]
+    CoTrainer._run_epoch, CoTrainer._eval_epoch = timed_run_epoch, counted_eval_epoch
+    try:
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli_main(common + ["Trainer.max_epoch=2"])
+        trainer = cli_main(common + ["Trainer.max_epoch=3", f"Trainer.checkpoint={run}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pk.LAUNCHES)
+    finally:
+        CoTrainer._run_epoch, CoTrainer._eval_epoch = run_epoch, eval_epoch
+
+    with open(run / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    with open("results/ACDC_cotrain_r3/metrics.csv", newline="") as f:
+        ref_header = next(csv.reader(f))
+    if list(rows[0].keys()) != ref_header:
+        raise AssertionError(f"metrics.csv header {list(rows[0])} is not dct_tpu's {ref_header}")
+    if [int(r["epoch"]) for r in rows] != [0, 1, 2]:
+        raise AssertionError(f"metrics.csv epochs {[r['epoch'] for r in rows]}, expected 0, 1, 2")
+    for r in rows:
+        for k, v in r.items():
+            if not math.isfinite(float(v)):
+                raise AssertionError(f"epoch {r['epoch']}: {k} = {v}")
+            if k.startswith(("val_dice", "val_batch_dice")) and not 0.0 <= float(v) <= 1.0:
+                raise AssertionError(f"epoch {r['epoch']}: {k} = {v} outside [0, 1]")
+    for name in ("best_0.ckpt", "best_1.ckpt", "last_0.ckpt", "last_1.ckpt",
+                 "opt_state.ckpt", "metrics_0.csv", "metrics_1.csv",
+                 "val_dice.npy", "val_batch_dice.npy", "scalars.jsonl", "config.yml"):
+        if not (run / name).is_file():
+            raise AssertionError(f"{run / name} missing")
+    for k in ("pool_mask_bwd", "unpool_bwd"):
+        if eval_launches[k]:
+            raise AssertionError(f"{k} launched {eval_launches[k]} times in eval")
+    for k in ("pool_mask_fwd", "unpool_fwd"):
+        if eval_launches[k] != 2 * eval_forwards[0]:
+            raise AssertionError(f"{k} launched {eval_launches[k]} times in "
+                                 f"{eval_forwards[0]} eval forwards, expected 2 each")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} never launched on the CLI path: {launches}")
+
+    # best_0.ckpt reproduces its epoch's 3D val dice
+    sd = load_checkpoint(run / "best_0.ckpt")
+    seg = Segmentator.from_state_dict(sd["segmentator"], device="cuda")
+    val = MedicalImageDataset(tree, "val", quite=True)
+    buckets = PatientBuckets(val, cot.DEFAULT_GRP_REGEX)
+    if trainer.val_buckets.bucket_len != EVAL_L or buckets.bucket_len != EVAL_L:
+        raise AssertionError(f"eval buckets of {trainer.val_buckets.bucket_len} "
+                             f"slices, phase 2 checked the kernels at {EVAL_L}")
+    out = make_eval_all_models_step([seg], 4)(
+        torch.from_numpy(val.data["img"]).cuda(), torch.from_numpy(val.data["gt"]).cuda(),
+        buckets.indices, buckets.mask)
+    dice3d = out["dice3d"][:, 0].cpu().numpy().mean(0)
+    row = rows[int(sd["best_epoch"])]
+    for i in (1, 2, 3):
+        csv_v = float(row[f"val_batch_dice_0_{i}"])
+        if abs(dice3d[i] - csv_v) > 5.1e-5:
+            raise AssertionError(f"best_0.ckpt (epoch {sd['best_epoch']}) gives "
+                                 f"val_batch_dice_0_{i} {dice3d[i]:.6f}, the CSV {csv_v}")
+    print(f"phase 5: CLI, 2 epochs + resume to 3 in {wall:.1f} s; best_0.ckpt "
+          f"(epoch {sd['best_epoch']}) reproduces its 3D dice "
+          f"{[round(float(d), 6) for d in dice3d[1:]]}; {eval_forwards[0]} eval "
+          f"forwards launched {eval_launches}; CLI launches {launches}", flush=True)
+    for (epoch, seconds), r in zip(epochs, rows):
+        t_train, t_eval = float(r["t_train"]), float(r["t_eval"])
+        print(json.dumps({"cli_epoch": epoch, "t_train": t_train, "t_eval": t_eval,
+                          "t_host": seconds - t_train - t_eval,
+                          "images_per_sec": float(r["images_per_sec"]),
+                          "tf32_convs": torch.backends.cudnn.allow_tf32,
+                          "val_batch_dice_0": [float(r[f"val_batch_dice_0_{i}"]) for i in (1, 2, 3)],
+                          "card": card}), flush=True)
+    del trainer, seg
+
+    errs = check_trained_weights(torch, val, buckets)
+    print(f"phase 5: trained results/ACDC_cotrain_r3/best_0.ckpt, eval forward of "
+          f"a padded {EVAL_L}-slice bucket on the card vs float64 CPU (share of "
+          f"scale): {errs}", flush=True)
+    return {"launches": launches, "eval_launches": eval_launches}
+
+
+def check_trained_weights(torch, val, buckets) -> dict:
+    """The committed trained weights: one eval-mode forward on the card
+    (fp32, TF32 off, CUDA kernels), through the Segmentator the eval step
+    runs, of the first val patient's bucket that pads (its slices, then
+    repeats of slice 0 up to the bucket length), against the same net in
+    float64 on the CPU."""
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.models.enet import Enet
+    from dct_tpu_torch.utils.convert import params_from_jax
+    seg_sd = load_checkpoint("results/ACDC_cotrain_r3/best_0.ckpt")["segmentator"]
+    padded = [p for p in range(len(buckets)) if not buckets.mask[p].all()]
+    if not padded:
+        raise AssertionError("no val patient pads its bucket")
+    idx = buckets.indices[padded[0]]
+    x = torch.from_numpy(val.data["img"][idx]).float()[..., None] / 255.0
+    seg = Segmentator.from_state_dict(seg_sd, device="cuda")
+    net = Enet(4)
+    net.load_state_dict(params_from_jax(seg_sd["net_state_dict"], seg_sd["batch_stats"]))
+    net = net.to("cpu", torch.float64, memory_format=torch.channels_last).eval()
+    with tf32_off(torch), torch.inference_mode():
+        out = {"cuda": seg.predict(x.cuda()).cpu().double(),
+               "cpu": net(x.double())}
+    err = float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max())
+    if not err < 1e-3:
+        raise AssertionError(f"trained eval logits on the card differ from the "
+                             f"float64 CPU reference by {err:.3g} of their scale")
+    return {"logits": err}
 
 
 def profile_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, gen):

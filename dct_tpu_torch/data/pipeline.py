@@ -1,13 +1,34 @@
 """Device-resident data path (``dct_tpu/data/pipeline.py``): the uint8
-(N,H,W) dataset stays on the device, a batch is an index tensor, and the
-gather, normalisation and augmentation run on the device."""
+(N,H,W) dataset is uploaded to the device once, a batch is an index tensor,
+and the gather, normalisation and augmentation run on the device. The host
+draws the batch indices (``EpochBatcher``, ``InfiniteBatcher``) and pads
+patients into eval buckets (``PatientBuckets``) with dct_tpu's exact draws
+and layout."""
 from __future__ import annotations
 
-from typing import Tuple
+import re
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from .augment import sample_aug_thetas, warp_gathered_u8
+from .dataset import MedicalImageDataset
+
+
+class DeviceDataset:
+    """The packed uint8 (N,H,W) arrays of a MedicalImageDataset uploaded to
+    ``device`` (one transfer each); indexing and normalisation happen on
+    the device."""
+
+    def __init__(self, ds: MedicalImageDataset, device: torch.device) -> None:
+        self.img = torch.from_numpy(ds.data["img"]).to(device)
+        self.gt = torch.from_numpy(ds.data["gt"]).to(device)
+        self.filenames = ds.filenames
+        self.n = len(ds)
+
+    def __len__(self) -> int:
+        return self.n
 
 
 def normalize_gather(img_u8: torch.Tensor, gt_u8: torch.Tensor,
@@ -33,3 +54,72 @@ def gather_augment_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
     h, w = img_u8.shape[1], img_u8.shape[2]
     thetas = sample_aug_thetas(generator, idx.shape[0], h, w).to(img_u8.device)
     return warp_gathered_u8(img_u8[idx], gt_u8[idx], thetas, dtype)
+
+
+class EpochBatcher:
+    """Shuffled, drop-last batch indices for one pass."""
+
+    def __init__(self, n: int, batch_size: int) -> None:
+        assert n >= batch_size, (n, batch_size)
+        self.n = n
+        self.batch_size = batch_size
+
+    def epoch(self, rs: np.random.RandomState) -> np.ndarray:
+        n_batches = self.n // self.batch_size
+        return rs.permutation(self.n)[:n_batches * self.batch_size].reshape(
+            n_batches, self.batch_size)
+
+
+class InfiniteBatcher:
+    """Endless reshuffling batch stream: ``take(k)`` → (k, B) indices,
+    spanning passes as needed. The first pass is drawn from ``rs`` at
+    construction."""
+
+    def __init__(self, n: int, batch_size: int, rs: np.random.RandomState) -> None:
+        self.inner = EpochBatcher(n, batch_size)
+        self.rs = rs
+        self._buf = self.inner.epoch(self.rs)
+        self._pos = 0
+
+    def take(self, k: int) -> np.ndarray:
+        out = []
+        need = k
+        while need > 0:
+            avail = len(self._buf) - self._pos
+            if avail == 0:
+                self._buf = self.inner.epoch(self.rs)
+                self._pos = 0
+                continue
+            grab = min(avail, need)
+            out.append(self._buf[self._pos:self._pos + grab])
+            self._pos += grab
+            need -= grab
+        return np.concatenate(out, axis=0)
+
+
+class PatientBuckets:
+    """Patient-grouped, padded eval batches: each patient's slices, padded
+    to the longest patient's count rounded up to a multiple of 8, with a
+    validity mask. Padding repeats index 0 and is masked out of every dice
+    and loss."""
+
+    def __init__(self, ds: MedicalImageDataset, grp_regex: str) -> None:
+        pattern = re.compile(grp_regex)
+        groups: Dict[str, List[int]] = {}
+        for i, stem in enumerate(ds.filenames):
+            m = pattern.match(stem)
+            assert m, f"{stem!r} !~ {grp_regex!r}"
+            groups.setdefault(m.group(1), []).append(i)
+        self.patients = sorted(groups)
+        max_len = max(len(v) for v in groups.values())
+        self.bucket_len = -(-max_len // 8) * 8
+        P = len(self.patients)
+        self.indices = np.zeros((P, self.bucket_len), np.int32)
+        self.mask = np.zeros((P, self.bucket_len), bool)
+        for p, name in enumerate(self.patients):
+            idxs = groups[name]
+            self.indices[p, :len(idxs)] = idxs
+            self.mask[p, :len(idxs)] = True
+
+    def __len__(self) -> int:
+        return len(self.patients)

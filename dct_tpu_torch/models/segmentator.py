@@ -12,13 +12,14 @@ running statistics stay fp32, and logits come back as fp32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from .. import resolve_device
 from ..optim import build_optimizer
 from ..schedules import get_lr_schedule
+from ..utils.convert import params_from_jax, params_to_jax
 from . import get_arch
 from .layers import init_weights_
 
@@ -46,6 +47,7 @@ class Segmentator:
         self.net = net.to(self.device, memory_format=torch.channels_last)
         self.optimizer = build_optimizer(optim_dict, self.net.parameters())
         self.lr_fn = get_lr_schedule(scheduler_dict, float(optim_dict["lr"]))
+        self.epoch = 0
 
     def apply_train(self, x: torch.Tensor) -> torch.Tensor:
         """Forward in train mode: BatchNorm normalises with the batch
@@ -57,3 +59,40 @@ class Segmentator:
         """Forward in eval mode (running BatchNorm statistics)."""
         self.net.eval()
         return self.net(x.to(self.compute_dtype)).float()
+
+    def predict(self, img: torch.Tensor) -> torch.Tensor:
+        """Eval-mode logits, under ``torch.inference_mode``."""
+        with torch.inference_mode():
+            return self.apply_eval(img)
+
+    def lr(self, epoch: Optional[int] = None) -> float:
+        return self.lr_fn(self.epoch if epoch is None else epoch)
+
+    def scheduler_step(self) -> None:
+        self.epoch += 1
+
+    # self-describing checkpoint payload (a checkpoint's ``segmentator``
+    # entry), in dct_tpu's layout: flax parameter trees. The optimizer state
+    # is not in it: the trainer writes it to opt_state.ckpt
+    @property
+    def state_dict(self) -> Dict[str, Any]:
+        params, batch_stats = params_to_jax(self.net.state_dict())
+        return {"arch_dict": self.arch_dict,
+                "optim_dict": self.optim_dict,
+                "scheduler_dict": self.scheduler_dict,
+                "net_state_dict": params,
+                "batch_stats": batch_stats,
+                "scheduler_state_dict": {"epoch": self.epoch}}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.net.load_state_dict(params_from_jax(sd["net_state_dict"],
+                                                 sd["batch_stats"]))
+        self.epoch = int(sd["scheduler_state_dict"]["epoch"])
+
+    @classmethod
+    def from_state_dict(cls, sd: Dict[str, Any], device=None) -> "Segmentator":
+        """Rebuild a Segmentator from a checkpoint alone."""
+        seg = cls(sd["arch_dict"], sd["optim_dict"], sd["scheduler_dict"],
+                  torch.Generator().manual_seed(0), device=device)
+        seg.load_state_dict(sd)
+        return seg

@@ -1,7 +1,8 @@
 """Loss-weight ramps and epoch-indexed LR schedules (``dct_tpu/schedules.py``).
 
 Each is a pure function of the epoch index, read on the host and passed to
-the training step as a number. This slice ports StepLR and RampScheduler.
+the training step as a number. Ported: the three loss-weight schedulers
+and StepLR; the other LR schedules come in a later slice.
 """
 from __future__ import annotations
 
@@ -54,6 +55,58 @@ class RampScheduler(WeightScheduler):
             return max_val
         frac = 1.0 - float(epoch - begin_epoch) / (max_epochs - begin_epoch)
         return max_val * math.exp(mult * frac ** 2)
+
+
+class ConstantScheduler(WeightScheduler):
+    """0 until ``begin_epoch``, then ``max_value``."""
+
+    def __init__(self, begin_epoch: int, max_value: float = 1.0) -> None:
+        super().__init__()
+        self.begin_epoch = int(begin_epoch)
+        self.max_value = float(max_value)
+
+    @property
+    def value(self) -> float:
+        return 0.0 if self.epoch < self.begin_epoch else self.max_value
+
+
+class RampDownScheduler(WeightScheduler):
+    """Exponential ramp-down to ``min_val``."""
+
+    def __init__(self, max_epoch: int, max_value: float, ramp_mult: float,
+                 min_val: float, cutoff: int) -> None:
+        super().__init__()
+        self.max_epoch = int(max_epoch)
+        self.max_value = float(max_value)
+        self.mult = float(ramp_mult)
+        self.min_val = float(min_val)
+        self.cutoff = int(cutoff)
+        assert self.cutoff < self.max_epoch
+
+    @property
+    def value(self) -> float:
+        e = self.epoch
+        if e == 0:
+            return self.max_value
+        if e >= self.cutoff:
+            return self.min_val
+        return (self.max_value
+                - self.max_value * math.exp(self.mult * (1.0 - float(e) / self.cutoff) ** 2)
+                + self.min_val)
+
+
+WEIGHT_SCHEDULERS = {
+    "RampScheduler": RampScheduler,
+    "ConstantScheduler": ConstantScheduler,
+    "RampDownScheduler": RampDownScheduler,
+}
+
+
+def get_weight_scheduler(sched_dict: Dict[str, Any]) -> WeightScheduler:
+    """Build by name from a config dict."""
+    name = sched_dict["name"]
+    kwargs = {k: v for k, v in sched_dict.items() if k != "name"}
+    return WEIGHT_SCHEDULERS[name](**kwargs)
 
 
 def step_lr(base_lr: float, step_size: int, gamma: float = 0.1):

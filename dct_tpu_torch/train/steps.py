@@ -1,5 +1,6 @@
 """The K-model co-training epoch (``dct_tpu/train/steps.py:make_cotrain_epoch``,
-unfused forward).
+unfused forward) and the per-patient eval steps
+(``make_eval_patient_step``, ``make_eval_all_models_step``).
 
 One iteration, in dct_tpu's order:
 
@@ -21,6 +22,12 @@ All forwards run BatchNorm in train mode, so running statistics update in
 dct_tpu's order: labeled per model, unlabeled, FGSM generation on model b,
 adversarial forward on model a. For K=2 the pair is always (a, b) = (0, 1).
 Per-iteration metrics stay on the device and are stacked once per epoch.
+
+The eval steps run each model in eval mode (running BatchNorm statistics,
+so a patient's padded slices change none of its valid ones) on one padded
+patient bucket at a time, under ``torch.inference_mode``; dct_tpu maps over
+patients and vmaps over models in one jit call. Padded slices enter the
+forward as in dct_tpu and are masked out of every dice and loss.
 """
 from __future__ import annotations
 
@@ -35,6 +42,17 @@ from ..losses import jsd_2d, kl_div_2d
 from ..models.segmentator import Segmentator
 from ..optim import set_lr
 from ..utils.general import class2one_hot, dice_coef, probs2one_hot
+
+
+def _masked_ce(logits: torch.Tensor, gt: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """CE over the valid slices of a padded patient bucket: logits (L,H,W,C),
+    gt (L,H,W), mask (L,) float."""
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = gt[..., None] == torch.arange(logits.shape[-1], device=gt.device)
+    nll = -torch.sum(torch.where(onehot, logp, 0.0), dim=-1)
+    w = torch.ones_like(nll) * mask[:, None, None]
+    return torch.sum(nll * w) / torch.clamp_min(torch.sum(w), 1e-12)
 
 
 def _dice_rows(logits: torch.Tensor, gt: torch.Tensor, C: int) -> torch.Tensor:
@@ -148,3 +166,63 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
         return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
     return epoch
+
+
+def _patient_metrics(logits: torch.Tensor, gt: torch.Tensor,
+                     gt_oh: torch.Tensor, maskf: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """dice2d (L,C), dice3d (C,) over the valid slices, masked CE."""
+    m4 = maskf[:, None, None, None]
+    loss = _masked_ce(logits, gt, maskf.to(logits.dtype))
+    pred_oh = probs2one_hot(torch.softmax(logits, dim=-1)) * m4
+    dice2d = dice_coef(gt_oh, pred_oh)
+    inter = torch.sum(gt_oh * pred_oh, dim=(0, 1, 2))
+    sums = torch.sum(gt_oh, dim=(0, 1, 2)) + torch.sum(pred_oh, dim=(0, 1, 2))
+    return {"dice2d": dice2d, "dice3d": (2 * inter + 1e-8) / (sums + 1e-8),
+            "loss": loss}
+
+
+def _bucket(img_u8, gt_u8, idx, mask, C):
+    """Gather one patient bucket: (img (L,H,W,1), gt, one-hot gt × mask,
+    mask as float)."""
+    dev = img_u8.device
+    idx = torch.as_tensor(np.asarray(idx), device=dev).long()
+    maskf = torch.as_tensor(np.asarray(mask), device=dev).float()
+    img, gt = normalize_gather(img_u8, gt_u8, idx)
+    return img, gt, class2one_hot(gt, C) * maskf[:, None, None, None], maskf
+
+
+def make_eval_patient_step(seg: Segmentator, C: int) -> Callable:
+    """``step(img_u8, gt_u8, idx (L,), mask (L,))`` → per-slice 2D dice
+    (L,C), whole-volume 3D dice (C,) over the valid slices, masked CE loss,
+    argmax prediction map (L,H,W), as tensors on the device."""
+
+    @torch.inference_mode()
+    def step(img_u8, gt_u8, idx, mask) -> Dict[str, torch.Tensor]:
+        img, gt, gt_oh, maskf = _bucket(img_u8, gt_u8, idx, mask, C)
+        logits = seg.apply_eval(img)
+        out = _patient_metrics(logits, gt, gt_oh, maskf)
+        out["pred"] = torch.argmax(logits, dim=-1)
+        return out
+
+    return step
+
+
+def make_eval_all_models_step(segs: Sequence[Segmentator], C: int) -> Callable:
+    """All K models × all patients: ``step(img_u8, gt_u8, indices (P,L),
+    masks (P,L))`` → {dice2d (P,K,L,C), dice3d (P,K,C), loss (P,K)} on the
+    device. Each patient's gather and one-hot gt are shared by the K
+    models."""
+
+    @torch.inference_mode()
+    def step(img_u8, gt_u8, indices, masks) -> Dict[str, torch.Tensor]:
+        per_patient = []
+        for idx, mask in zip(np.asarray(indices), np.asarray(masks)):
+            img, gt, gt_oh, maskf = _bucket(img_u8, gt_u8, idx, mask, C)
+            per_model = [_patient_metrics(s.apply_eval(img), gt, gt_oh, maskf)
+                         for s in segs]
+            per_patient.append({k: torch.stack([m[k] for m in per_model])
+                                for k in per_model[0]})
+        return {k: torch.stack([p[k] for p in per_patient]) for k in per_patient[0]}
+
+    return step

@@ -1,0 +1,119 @@
+"""Co-training entry point (``train_cotraining.py`` of dct_tpu), on the card:
+
+    python -m dct_tpu_torch.train_cotraining [--config configs/acdc_cotraining.yaml] \\
+        [--device cuda|cpu] Trainer.save_dir=runs/exp \\
+        StartTraining.train_jsd=True StartTraining.train_adv=True
+
+It reads dct_tpu's YAML configs unchanged. ``--device`` defaults to the
+card and raises without one; ``--device cpu`` runs on the CPU. Config keys
+of dct_tpu this port does not carry: ``Trainer.fuse_forward`` is accepted
+and runs the unfused step, which dct_tpu pins equal to the fused one up to
+reassociation (``tests/test_step_semantics.py::
+test_fuse_forward_matches_unfused``); a non-null ``Trainer.adv_dtype`` and
+``Trainer.parallel`` raise; ``Trainer.iters_per_dispatch`` must divide
+``iters_per_epoch`` as in dct_tpu and changes nothing else, since the port
+dispatches per iteration; ``Trainer.device`` is ignored, as in dct_tpu.
+
+Precision: the CLI keeps PyTorch's defaults. With ``Arch.compute_dtype:
+float32`` (the configs' setting) cuDNN convolutions run in TF32
+(``torch.backends.cudnn.allow_tf32``) and matmuls in full fp32.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from . import resolve_device
+from .config import yaml_parser
+from .data.splits import get_dataset_split
+from .losses import get_loss_fn
+from .models import Segmentator
+from .train import CoTrainer
+from .train.cotrainer import DEFAULT_GRP_REGEX, ITERS_PER_EPOCH
+from .utils.general import fix_all_seed
+
+DEFAULT_CONFIG = "configs/acdc_cotraining.yaml"
+
+
+def get_models(config, generator: torch.Generator, device):
+    """K Segmentators from one Arch/Optim/Scheduler block, each initialised
+    from its own seed drawn from ``generator``."""
+    n = int(config["Lab_Partitions"]["num_models"])
+    seeds = torch.randint(0, 2**62, (n,), generator=generator).tolist()
+    return [Segmentator(config["Arch"], config["Optim"], config["Scheduler"],
+                        torch.Generator().manual_seed(s), device=device)
+            for s in seeds]
+
+
+def check_trainer_config(trainer_cfg) -> None:
+    """Reject the Trainer keys of dct_tpu this port does not run."""
+    if trainer_cfg.get("adv_dtype") is not None:
+        raise NotImplementedError(
+            "Trainer.adv_dtype is not ported yet (ROADMAP item 9, with the "
+            "fused forward)")
+    if trainer_cfg.get("parallel") is not None:
+        raise NotImplementedError(
+            "Trainer.parallel is not ported yet (ROADMAP item 15, parallel/)")
+    per = trainer_cfg.get("iters_per_dispatch")
+    iters = int(trainer_cfg.get("iters_per_epoch", ITERS_PER_EPOCH))
+    if per:
+        assert iters % int(per) == 0, (iters, per)
+
+
+def main(argv=None) -> CoTrainer:
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda",
+                     help="cuda (default: the current card) or cpu")
+    args, rest = pre.parse_known_args(argv)
+    device = resolve_device(args.device)
+    config = yaml_parser(DEFAULT_CONFIG, rest)
+    trainer_cfg = config["Trainer"]
+    check_trainer_config(trainer_cfg)
+    seed = int(config.get("Seed", 1234))
+    generator = fix_all_seed(seed)
+
+    dataset_name = config.get("Dataset", {}).get("name", "acdc")
+    labeled_sets, unlab_set, val_set = get_dataset_split(config, dataset_name)
+    segmentators = get_models(config, generator, device)
+
+    loss_cfg = dict(config.get("Loss", {"name": "cross_entropy"}))
+    sup_loss = get_loss_fn(loss_cfg.pop("name"), **loss_cfg)
+    criterions = {"sup": sup_loss, "jsd": get_loss_fn("jsd"),
+                  "adv": get_loss_fn("jsd")}
+
+    grp_regex = DEFAULT_GRP_REGEX
+    bs_cfg = config.get("Lab_Dataloader", {}).get("batch_sampler")
+    if bs_cfg:
+        grp_regex = bs_cfg[1]["grp_regex"]
+
+    cotrainer = CoTrainer(
+        segmentators=segmentators,
+        labeled_datasets=labeled_sets,
+        unlabeled_dataset=unlab_set,
+        val_dataset=val_set,
+        criterions=criterions,
+        max_epoch=int(trainer_cfg["max_epoch"]),
+        save_dir=trainer_cfg["save_dir"],
+        axises=trainer_cfg.get("axises", [1, 2, 3]),
+        checkpoint=trainer_cfg.get("checkpoint"),
+        metricname=trainer_cfg.get("metricname", "metrics.csv"),
+        cot_scheduler_dict=config.get("Cot_Scheduler"),
+        adv_scheduler_dict=config.get("Adv_Scheduler"),
+        adv_training_dict=config.get("Adv_Training", {}),
+        batch_size=int(config["Lab_Dataloader"]["batch_size"]),
+        unlab_batch_size=int(config["Unlab_Dataloader"]["batch_size"]),
+        grp_regex=grp_regex,
+        iters_per_epoch=int(trainer_cfg.get("iters_per_epoch", ITERS_PER_EPOCH)),
+        seed=seed,
+        nan_policy=trainer_cfg.get("nan_policy", "warn"),
+        whole_config=config,
+        device=device,
+    )
+    cotrainer.start_training(**config["StartTraining"])
+    return cotrainer
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,6 +1,6 @@
 """Rules of the dct_tpu_torch package: it never imports JAX or dct_tpu, it
-imports where JAX cannot be imported, and its entry points refuse to run on
-the CPU unless asked to."""
+imports where JAX cannot be imported, its CLI needs no pandas, and its
+entry points refuse to run on the CPU unless asked to."""
 import re
 import subprocess
 import sys
@@ -111,3 +111,57 @@ def test_cpu_path_builds_nothing():
     pool_kernels.mask_unpool_2x2_kernel(pooled, mask)
     assert pool_kernels._lib is None
     assert pool_kernels.LAUNCHES == before
+
+
+def test_cli_and_cotrainer_need_cuda_or_explicit_cpu(no_cuda, tmp_path):
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train import CoTrainer
+    from dct_tpu_torch.train_cotraining import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([f"Trainer.save_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--device", "cuda", f"Trainer.save_dir={tmp_path}"])
+    seg = Segmentator({"name": "enet", "num_classes": 4}, {"name": "Adam", "lr": 1e-3},
+                      {"name": "StepLR", "step_size": 90},
+                      torch.Generator().manual_seed(0), device="cpu")
+    crit = {"sup": None, "jsd": None, "adv": None}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CoTrainer([seg], [None], None, None, crit, save_dir=tmp_path)
+    assert not any(tmp_path.iterdir())
+
+
+def test_cli_runs_without_pandas(tmp_path):
+    """In a process where importing pandas (and JAX, dct_tpu) raises: write
+    a tiny PNG tree, then one co-training epoch of one iteration through
+    the CLI on the CPU. TensorFlow is blocked too: TensorBoard's event
+    writer imports it where it is installed, which takes longer than the
+    run itself, and falls back to its own writer without it."""
+    code = (
+        "import sys\n"
+        "for name in ('pandas', 'jax', 'flax', 'optax', 'dct_tpu', 'tensorflow'):\n"
+        "    sys.modules[name] = None\n"
+        "from pathlib import Path\n"
+        "import numpy as np\n"
+        "from PIL import Image\n"
+        "from dct_tpu_torch.train_cotraining import main\n"
+        "root = Path(sys.argv[1])\n"
+        "rs = np.random.RandomState(0)\n"
+        "for mode, n in (('train', 100), ('val', 2)):\n"
+        "    for sub in ('img', 'gt'):\n"
+        "        (root / mode / sub).mkdir(parents=True)\n"
+        "    for p in range(1, n + 1):\n"
+        "        stem = f'patient{p:03d}_01_0_0.png'\n"
+        "        Image.fromarray(rs.randint(0, 256, (16, 16)).astype(np.uint8)).save(root / mode / 'img' / stem)\n"
+        "        Image.fromarray(rs.randint(0, 4, (16, 16)).astype(np.uint8)).save(root / mode / 'gt' / stem)\n"
+        "main(['--device', 'cpu', f'Dataset.root_dir={root}',\n"
+        "      'Dataset.transform=segment_transform((16,16))',\n"
+        "      f'Trainer.save_dir={root / \"run\"}', 'Trainer.max_epoch=1',\n"
+        "      'Trainer.iters_per_epoch=1', 'Lab_Dataloader.batch_size=2',\n"
+        "      'Unlab_Dataloader.batch_size=2', 'StartTraining.train_jsd=True'])\n"
+        "assert (root / 'run' / 'best_0.ckpt').is_file()\n"
+        "assert not any(k.split('.')[0] in ('pandas', 'jax')\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "tree")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert ">> epoch 0:" in proc.stdout

@@ -22,12 +22,15 @@ from dct_tpu_torch.ops.pool_kernels import (DIRECT_THREADS, GRID_Y_MAX, KERNELS,
                                             VEC_BYTES, pool_tiling)
 
 MAIN_PATH = [(8, 128, 128, 14), (8, 64, 64, 64)]       # ENet bottleneck_1_0, 2_0
+# the eval step's forwards take one padded patient bucket: L slices, L a
+# multiple of 8 (8 is the main path's batch; 16 for ACDC-sized patients)
+EVAL = [(16, 128, 128, 14), (16, 64, 64, 64)]
 RAGGED = [(1, 2, 2, 1), (3, 6, 10, 3), (2, 130, 34, 14),
           (2, 6, 14, 5),                               # w * c = 35, odd
           (2, 6, 10, 4)]                               # pairs, ragged
 WIDE = (1, 2, 4, 4096)        # over 48 KB of shared memory a block in fp32
 TALL = (2, 65538, 4, 2)       # more row pairs than a grid has rows
-SHAPES = MAIN_PATH + RAGGED + [WIDE, TALL]
+SHAPES = MAIN_PATH + EVAL + RAGGED + [WIDE, TALL]
 DTYPES = {"float32": 4, "bfloat16": 2}
 SMS = 132                                              # H100 SXM
 # buffers a block stages: two full-resolution rows and one pooled row
@@ -157,7 +160,7 @@ def test_wide_channels_ask_for_more_shared_memory():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("x_shape", MAIN_PATH)
+@pytest.mark.parametrize("x_shape", MAIN_PATH + EVAL)
 def test_main_path_runs_on_the_vector_body(x_shape, dtype):
     for kernel in STAGED:
         tiling = pool_tiling(kernel, pooled_of(x_shape), DTYPES[dtype])
@@ -167,10 +170,12 @@ def test_main_path_runs_on_the_vector_body(x_shape, dtype):
 
 @pytest.mark.parametrize("kernel", ["unpool_fwd", "unpool_bwd"])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("y_shape", [(8, 32, 32, 64), (8, 64, 64, 14)])
+@pytest.mark.parametrize("y_shape", [(8, 32, 32, 64), (8, 64, 64, 14),
+                                     (16, 32, 32, 64), (16, 64, 64, 14)])
 def test_unpool_main_path_takes_channel_pairs(y_shape, dtype, kernel):
-    """ENet's bottleneck_4_0 and 5_0: one 2-channel pack a thread, full
-    blocks of DIRECT_THREADS, one grid layer, several blocks per SM."""
+    """ENet's bottleneck_4_0 and 5_0, in training (8 images) and in eval
+    (a bucket of 16): one 2-channel pack a thread, full blocks of
+    DIRECT_THREADS, one grid layer, several blocks per SM."""
     tiling = pool_tiling(kernel, y_shape, DTYPES[dtype])
     assert tiling.pack == 2 and tiling.threads == DIRECT_THREADS
     assert tiling.grid_rows == y_shape[0] * y_shape[1]
