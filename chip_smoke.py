@@ -11,7 +11,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (8 images at 256²), in fp32 and bf16, held bit-equal to its plain PyTorch
    version on tie-dense integer-valued inputs (the unpool pair through masks
    the pool makes from them), with one NaN window in the pool's forward, a
-   NaN in y and a NaN and an inf in g at masked-out corners; all four also
+   NaN in y and a NaN and an inf in g at masked-out corners, at the
+   baselines' batch of 4 too; all four also
    at ragged shapes (spans off 16 bytes, odd w·c) and from pointers off 16
    bytes, which run the kernels' scalar edge path, at 4096 channels (over
    48 KB of shared memory a block in fp32) and at more row pairs than a
@@ -49,6 +50,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches; TF32 off for this comparison only), held against the same net
    in float64 on the CPU.
 
+6. The three baseline CLIs at full width, each on its config as it ships
+   (fp32, PyTorch's precision defaults, full ENet, 4 classes, B = 4 and
+   Bu = 4, 256²): ``dct_tpu_torch.train_sup`` on a tree of 10 train
+   patients × 16 slices (its epoch is a whole pass of the train folder,
+   40 iterations), ``train_vat`` and ``train_mean_teacher`` on phase 5's
+   tree (the ACDC split's 20 labeled patients: 80 iterations an epoch).
+   Each runs 1 epoch, then resumes from its ``last.ckpt`` to a second.
+   Checks per CLI: finite losses, dct_tpu's CSV header (the committed
+   ``results/ACDC_vat`` and ``results/ACDC_meanteacher`` metrics for VAT
+   and MT), val dice in [0, 1], the checkpoint files, the best checkpoint
+   reloaded reproducing its CSV 2D dice, Adam's step count continuing
+   across the resume, and the launches a training iteration (supervised
+   2/2/2/2, VAT 10/10/6/6, MT 8/8/4/4 of pool_mask_fwd/unpool_fwd/
+   pool_mask_bwd/unpool_bwd) and an eval forward (2/2/0/0) makes; VAT's
+   variant without the adversarial term (λ_adv = 0) 2/2/2/2. VAT's
+   perturbation on the trained ``results/ACDC_vat/best.ckpt`` weights, 4
+   slices and one noise draw: every sample's ‖r_adv‖ must be ε (1e-3
+   relative); its cosine to the same perturbation in float64 on the CPU
+   is printed, at the CLI's precision and with TF32 off. The trained VAT net and Mean-Teacher teacher of
+   ``results/`` run one eval-mode forward on the card over a padded
+   16-slice bucket against float64 on the CPU, as in phase 5.
+
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
 no CUDA device is present or the ``dct_tpu_torch`` package is not beside it.
@@ -77,6 +100,9 @@ UNPOOL_SHAPES = [((N_IMG, 32, 32, 64), "bottleneck_4_0"),
 EVAL_L = 16
 EVAL_POOL_SHAPES = [(EVAL_L,) + shape[1:] for shape, _ in POOL_SHAPES]
 EVAL_UNPOOL_SHAPES = [(EVAL_L,) + shape[1:] for shape, _ in UNPOOL_SHAPES]
+# the baseline trainers' forwards: 4 images (B = Bu = 4, one batch a forward)
+B4_POOL_SHAPES = [(4,) + shape[1:] for shape, _ in POOL_SHAPES]
+B4_UNPOOL_SHAPES = [(4,) + shape[1:] for shape, _ in UNPOOL_SHAPES]
 # full-resolution shapes (the pool's input, the unpool's mask and output)
 # whose spans are not whole 16-byte vectors (pooled w·c odd in the fourth;
 # the fifth runs channel pairs with a head and a tail); one pooled column of
@@ -233,9 +259,9 @@ def check_kernels(torch, pk, plain):
         for check in (check_pool_exact, check_unpool_exact):
             check(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype, errs,
                   offset=1)
-        for shape in EVAL_POOL_SHAPES:
+        for shape in EVAL_POOL_SHAPES + B4_POOL_SHAPES:
             check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
-        for n, h, w, c in EVAL_UNPOOL_SHAPES:
+        for n, h, w, c in EVAL_UNPOOL_SHAPES + B4_UNPOOL_SHAPES:
             check_unpool_exact(torch, pk, plain, ints, (n, 2 * h, 2 * w, c), dtype, errs)
         for shape, where in POOL_SHAPES:
             n, hh, ww, c = shape
@@ -454,7 +480,8 @@ def main() -> int:
     print("phase 2: 4 kernels bit-equal to their plain versions "
           "(fp32, bf16, ties, NaN window, NaN in y, NaN and inf in g at "
           "masked-out corners; at the main-path shapes, at the eval shapes "
-          f"{EVAL_POOL_SHAPES} (pool) and {EVAL_UNPOOL_SHAPES} (unpool), at "
+          f"{EVAL_POOL_SHAPES} (pool) and {EVAL_UNPOOL_SHAPES} (unpool), at the "
+          f"baselines' {B4_POOL_SHAPES} and {B4_UNPOOL_SHAPES}, at "
           f"ragged shapes {RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
     print(json.dumps({"kernel_detail": detail, "card": card}), flush=True)
     print(json.dumps({"launch_floor_ms": launch_floor_ms(torch), "card": card}),
@@ -495,6 +522,8 @@ def main() -> int:
     del segs, img_u8, gt_u8
 
     cli = run_cli(torch, pk, card)
+    per_iteration = {"cotrain": dict.fromkeys(pk.KERNELS, 12),
+                     **run_baselines(torch, pk, card, cli["tree"], cli["val"], cli["buckets"])}
 
     kernels = []
     for name in pk.KERNELS:
@@ -509,7 +538,8 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
             "launches_cli": cli["launches"][name],
-            "launches_eval": cli["eval_launches"][name]})
+            "launches_eval": cli["eval_launches"][name],
+            "launches_per_iteration": {k: v[name] for k, v in per_iteration.items()}})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -518,16 +548,16 @@ def main() -> int:
     return 0
 
 
-def write_acdc_tree(root: Path, seed: int = 0) -> None:
+def write_acdc_tree(root: Path, seed: int = 0, n_train: int = 100) -> None:
     """An ACDC-style PNG tree, root/{train,val}/{img,gt}/patientPPP_01_0_S.png
     at 256²: concentric rings (gt) and a noisy rendering of them (img), so a
-    segmenter can learn the mapping. 100 train patients × 16 slices; 20 val
-    patients of 8–16 slices, unequal so that the eval buckets pad."""
+    segmenter can learn the mapping. ``n_train`` train patients × 16 slices;
+    20 val patients of 8–16 slices, unequal so that the eval buckets pad."""
     from PIL import Image
     rs = np.random.RandomState(seed)
     size, n_classes = 256, 4
     yy, xx = np.mgrid[0:size, 0:size]
-    for mode, counts in (("train", [16] * 100),
+    for mode, counts in (("train", [16] * n_train),
                          ("val", rs.randint(8, 17, size=20).tolist())):
         for sub in ("img", "gt"):
             (root / mode / sub).mkdir(parents=True, exist_ok=True)
@@ -556,8 +586,8 @@ def run_cli(torch, pk, card: str) -> dict:
     from dct_tpu_torch.data.pipeline import PatientBuckets
     from dct_tpu_torch.models import Segmentator
     from dct_tpu_torch.train import CoTrainer
-    from dct_tpu_torch.train import cotrainer as cot
     from dct_tpu_torch.train.steps import make_eval_all_models_step
+    from dct_tpu_torch.train.trainer import DEFAULT_GRP_REGEX
     from dct_tpu_torch.train_cotraining import main as cli_main
 
     tree, run = Path("build/acdc_synthetic"), Path("build/cli_run")
@@ -639,7 +669,7 @@ def run_cli(torch, pk, card: str) -> dict:
     sd = load_checkpoint(run / "best_0.ckpt")
     seg = Segmentator.from_state_dict(sd["segmentator"], device="cuda")
     val = MedicalImageDataset(tree, "val", quite=True)
-    buckets = PatientBuckets(val, cot.DEFAULT_GRP_REGEX)
+    buckets = PatientBuckets(val, DEFAULT_GRP_REGEX)
     if trainer.val_buckets.bucket_len != EVAL_L or buckets.bucket_len != EVAL_L:
         raise AssertionError(f"eval buckets of {trainer.val_buckets.bucket_len} "
                              f"slices, phase 2 checked the kernels at {EVAL_L}")
@@ -667,24 +697,33 @@ def run_cli(torch, pk, card: str) -> dict:
                           "card": card}), flush=True)
     del trainer, seg
 
-    errs = check_trained_weights(torch, val, buckets)
+    errs = check_trained_weights(torch, val, buckets, "results/ACDC_cotrain_r3/best_0.ckpt")
     print(f"phase 5: trained results/ACDC_cotrain_r3/best_0.ckpt, eval forward of "
           f"a padded {EVAL_L}-slice bucket on the card vs float64 CPU (share of "
           f"scale): {errs}", flush=True)
-    return {"launches": launches, "eval_launches": eval_launches}
+    return {"launches": launches, "eval_launches": eval_launches, "tree": tree,
+            "val": val, "buckets": buckets}
 
 
-def check_trained_weights(torch, val, buckets) -> dict:
-    """The committed trained weights: one eval-mode forward on the card
-    (fp32, TF32 off, CUDA kernels), through the Segmentator the eval step
-    runs, of the first val patient's bucket that pads (its slices, then
-    repeats of slice 0 up to the bucket length), against the same net in
-    float64 on the CPU."""
+def check_trained_weights(torch, val, buckets, path: str, entry: str = "segmentator") -> dict:
+    """The committed trained weights of ``path``'s ``entry``: one eval-mode
+    forward on the card (fp32, TF32 off, CUDA kernels), through the
+    Segmentator the eval step runs, of the first val patient's bucket that
+    pads (its slices, then repeats of slice 0 up to the bucket length),
+    against the same net in float64 on the CPU.
+
+    The logits must agree within 1e-3 of their scale. Where a pool window
+    holds a near-tie (two corners within fp32 rounding of each other), fp32
+    and float64 may pick different corners: such mask flips are counted,
+    and then only the logits' 99.9th percentile is held to 1e-3 of scale,
+    the flips to 1e-5 of the mask entries and the argmax to all but 1e-4
+    of the pixels."""
+    import dct_tpu_torch.models.enet as enet_mod
     from dct_tpu_torch.checkpoint import load_checkpoint
     from dct_tpu_torch.models import Segmentator
     from dct_tpu_torch.models.enet import Enet
     from dct_tpu_torch.utils.convert import params_from_jax
-    seg_sd = load_checkpoint("results/ACDC_cotrain_r3/best_0.ckpt")["segmentator"]
+    seg_sd = load_checkpoint(path)[entry]
     padded = [p for p in range(len(buckets)) if not buckets.mask[p].all()]
     if not padded:
         raise AssertionError("no val patient pads its bucket")
@@ -694,14 +733,317 @@ def check_trained_weights(torch, val, buckets) -> dict:
     net = Enet(4)
     net.load_state_dict(params_from_jax(seg_sd["net_state_dict"], seg_sd["batch_stats"]))
     net = net.to("cpu", torch.float64, memory_format=torch.channels_last).eval()
-    with tf32_off(torch), torch.inference_mode():
-        out = {"cuda": seg.predict(x.cuda()).cpu().double(),
-               "cpu": net(x.double())}
-    err = float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max())
-    if not err < 1e-3:
-        raise AssertionError(f"trained eval logits on the card differ from the "
-                             f"float64 CPU reference by {err:.3g} of their scale")
-    return {"logits": err}
+    pool, masks = enet_mod.max_pool_2x2_with_mask_kernel, {"cuda": [], "cpu": []}
+
+    def recording(side):
+        def run(t):
+            out = pool(t)
+            masks[side].append(out[1].cpu().double())
+            return out
+        return run
+    try:
+        with tf32_off(torch), torch.inference_mode():
+            enet_mod.max_pool_2x2_with_mask_kernel = recording("cuda")
+            card = seg.predict(x.cuda()).cpu().double()
+            enet_mod.max_pool_2x2_with_mask_kernel = recording("cpu")
+            ref = net(x.double())
+    finally:
+        enet_mod.max_pool_2x2_with_mask_kernel = pool
+    scale = ref.abs().max()
+    err = (card - ref).abs()
+    flips = sum(int((a != b).sum()) for a, b in zip(masks["cuda"], masks["cpu"]))
+    n_mask = sum(m.numel() for m in masks["cpu"])
+    out = {"logits": float(err.max() / scale),
+           "logits_p999": float(torch.quantile(err.flatten().float(), 0.999) / scale),
+           "mask_flips": flips, "mask_entries": n_mask,
+           "argmax_disagree": float((card.argmax(-1) != ref.argmax(-1)).double().mean())}
+    near_tie_ok = (out["logits_p999"] < 1e-3 and flips <= 1e-5 * n_mask
+                   and out["argmax_disagree"] <= 1e-4)
+    if not (out["logits"] < 1e-3 or (flips and near_tie_ok)):
+        raise AssertionError(f"trained {path} ({entry}) eval logits on the card differ "
+                             f"from the float64 CPU reference: {out}")
+    return out
+
+
+FWD_BWD = ("pool_mask_fwd", "unpool_fwd", "pool_mask_bwd", "unpool_bwd")
+SUP_HEADER = (["epoch"] + [f"{p}_{i}" for p in ("train_dice", "val_dice", "val_batch_dice")
+                           for i in (1, 2, 3)]
+              + ["train_loss", "val_loss", "images_per_sec", "t_train", "t_eval"])
+# (name, CLI module, config, the tree it runs on ("sup" or phase 5's), the
+# launches of pool_mask_fwd, unpool_fwd, pool_mask_bwd, unpool_bwd a
+# training iteration, the committed CSV with dct_tpu's header or None,
+# the CSV's 2D val dice columns, the best checkpoint, its eval entry)
+BASELINES = [
+    ("supervised", "train_sup", "configs/acdc_supervised.yaml", "sup", (2, 2, 2, 2),
+     None, "val_dice", "best.ckpt", "segmentator"),
+    ("vat", "train_vat", "configs/acdc_vat.yaml", "main", (10, 10, 6, 6),
+     "results/ACDC_vat/metrics.csv", "val_dice", "best.ckpt", "segmentator"),
+    ("mean_teacher", "train_mean_teacher", "configs/acdc_meanteacher.yaml", "main",
+     (8, 8, 4, 4), "results/ACDC_meanteacher/metrics.csv", "val_teacher_2d_dice",
+     "best_*.ckpt", "teacher"),
+]
+
+
+def run_baselines(torch, pk, card: str, main_tree: Path, val, buckets) -> dict:
+    """Phase 6: the three baseline CLIs at full width, one epoch and a
+    resume to a second each, checked as the module docstring says. Returns
+    the launches a training iteration of each path makes."""
+    import importlib
+    import shutil
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.losses import get_loss_fn
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train import MeanTeacherTrainer, Trainer, VatTrainer
+    from dct_tpu_torch.train import mean_teacher, trainer as trainer_mod, vat
+    from dct_tpu_torch.train.steps import make_eval_all_step
+    from dct_tpu_torch.train.vat import make_vat_epoch
+
+    sup_tree = Path("build/acdc_synthetic_sup")
+    t0 = time.perf_counter()
+    shutil.rmtree(sup_tree, ignore_errors=True)
+    write_acdc_tree(sup_tree, seed=1, n_train=10)
+    print(f"phase 6: wrote the supervised tree in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # launches and wall time of each start_training call (one epoch each
+    # here: the counters are set to 0 just before it and read just after),
+    # and the launches of its eval passes, read around the trainers' own
+    # functions
+    evals = {"forwards": 0, **dict.fromkeys(pk.KERNELS, 0)}
+    runs = []
+    eval_dice = trainer_mod.eval_dice
+
+    def counted_eval_dice(eval_all, val_dev, val_buckets):
+        before = dict(pk.LAUNCHES)
+        out = eval_dice(eval_all, val_dev, val_buckets)     # ends on the host
+        for k in pk.KERNELS:
+            evals[k] += pk.LAUNCHES[k] - before[k]
+        evals["forwards"] += len(val_buckets)
+        return out
+
+    def timed(start):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            evals.update({"forwards": 0, **dict.fromkeys(pk.KERNELS, 0)})
+            pk.reset_launch_counts()
+            t = time.perf_counter()
+            rows = start(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            runs.append({"wall": time.perf_counter() - t, "launches": dict(pk.LAUNCHES),
+                         "eval": dict(evals)})
+            return rows
+        return run
+
+    classes = (Trainer, VatTrainer, MeanTeacherTrainer)
+    starts = [c.start_training for c in classes]
+    modules = (trainer_mod, vat, mean_teacher)
+    for c, start in zip(classes, starts):
+        c.start_training = timed(start)
+    for m in modules:
+        m.eval_dice = counted_eval_dice
+    per_iteration = {}
+    try:
+        for (name, module, config, tree_name, per_iter, ref_csv, dice_col, best_glob,
+             entry) in BASELINES:
+            tree = sup_tree if tree_name == "sup" else main_tree
+            run = Path(f"build/{name}_run")
+            shutil.rmtree(run, ignore_errors=True)
+            cli_main = importlib.import_module(f"dct_tpu_torch.{module}").main
+            common = ["--config", config, f"Dataset.root_dir={tree}", f"Trainer.save_dir={run}"]
+            first = len(runs)
+            cli_main(common + ["Trainer.max_epoch=1"])
+            count_after_one = int(_adam_payload(load_checkpoint(run / "last.ckpt"))["count"])
+            trainer = cli_main(common + ["Trainer.max_epoch=2",
+                                         f"Trainer.checkpoint={run / 'last.ckpt'}"])
+            T = (len(trainer.train_set) // trainer.batch_size if name == "supervised"
+                 else trainer.iters_per_epoch)
+            check_baseline_run(name, run, runs[first:], T, per_iter, ref_csv,
+                               count_after_one, trainer)
+            per_iteration[name] = dict(zip(FWD_BWD, per_iter))
+            check_best_reproduces(load_checkpoint, Segmentator, make_eval_all_step,
+                                  eval_dice, name, run, best_glob, entry, dice_col, trainer)
+            for epoch, r in enumerate(runs[first:]):
+                row = _csv_rows(run)[epoch]
+                t_train, t_eval = float(row["t_train"]), float(row["t_eval"])
+                print(json.dumps({"cli": name, "cli_epoch": epoch, "t_train": t_train,
+                                  "t_eval": t_eval, "t_host": r["wall"] - t_train - t_eval,
+                                  "iterations": T,
+                                  "images_per_sec": float(row["images_per_sec"]),
+                                  "tf32_convs": torch.backends.cudnn.allow_tf32,
+                                  "card": card}), flush=True)
+            if name == "vat":
+                per_iteration["vat_no_adv"] = check_vat_without_term(
+                    torch, pk, trainer, make_vat_epoch, get_loss_fn("cross_entropy"))
+            del trainer
+    finally:
+        for c, start in zip(classes, starts):
+            c.start_training = start
+        for m in modules:
+            m.eval_dice = eval_dice
+
+    vat_r = check_vat_perturbation(torch, val)
+    print(f"phase 6: VAT r_adv on the trained results/ACDC_vat weights, 4 slices at "
+          f"256², ε = 10, on the card at the CLI's precision and with TF32 off: "
+          f"‖r_adv‖ and cosine to float64 on the CPU {vat_r}", flush=True)
+    for path, entry in (("results/ACDC_vat/best.ckpt", "segmentator"),
+                        ("results/ACDC_meanteacher/best_0.7408_85.ckpt", "teacher")):
+        errs = check_trained_weights(torch, val, buckets, path, entry)
+        print(f"phase 6: trained {path} ({entry}), eval forward of a padded "
+              f"{EVAL_L}-slice bucket on the card vs float64 CPU (share of scale): "
+              f"{errs}", flush=True)
+    return per_iteration
+
+
+def _adam_payload(sd: dict) -> dict:
+    return (sd["student"] if "student" in sd else sd["segmentator"])["optim_state_dict"]
+
+
+def _csv_rows(run: Path) -> list:
+    import csv
+    with open(run / "metrics.csv", newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def check_baseline_run(name, run, runs, T, per_iter, ref_csv, count_after_one,
+                       trainer) -> None:
+    """CSV header, rows, finite losses, dice in [0, 1], files, Adam's count
+    across the resume, and the launches of each epoch's training iterations
+    and eval forwards."""
+    import csv
+    rows = _csv_rows(run)
+    if ref_csv is None:
+        ref_header = SUP_HEADER
+    else:
+        with open(ref_csv, newline="") as f:
+            ref_header = next(csv.reader(f))
+    if list(rows[0].keys()) != ref_header:
+        raise AssertionError(f"{name}: metrics.csv header {list(rows[0])} is not dct_tpu's "
+                             f"{ref_header}")
+    if [int(r["epoch"]) for r in rows] != [0, 1]:
+        raise AssertionError(f"{name}: metrics.csv epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        for k, v in r.items():
+            if not math.isfinite(float(v)):
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v}")
+            if "dice" in k and not 0.0 <= float(v) <= 1.0:
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v} outside [0, 1]")
+    if name == "vat" and not all(float(r["adv_loss"]) > 0 for r in rows):
+        raise AssertionError("vat: the adversarial term did not run")
+    best = sorted(run.glob("best*.ckpt"))
+    if not (run / "last.ckpt").is_file() or len(best) != 1:
+        raise AssertionError(f"{name}: checkpoints {sorted(p.name for p in run.iterdir())}")
+    opt = trainer.student.optimizer if name == "mean_teacher" else trainer.segmentator.optimizer
+    steps = {float(st["step"]) for st in opt.state.values()}
+    if count_after_one != T or steps != {2.0 * T}:
+        raise AssertionError(f"{name}: Adam count {count_after_one} after epoch 0, steps "
+                             f"{steps} after the resume; expected {T} and {2 * T}")
+    if len(runs) != 2:
+        raise AssertionError(f"{name}: {len(runs)} training calls, expected 2")
+    for epoch, r in enumerate(runs):
+        ev, n_fwd = r["eval"], r["eval"]["forwards"]
+        want_eval = dict(zip(FWD_BWD, (2 * n_fwd, 2 * n_fwd, 0, 0)))
+        got_eval = {k: ev[k] for k in FWD_BWD}
+        train = {k: r["launches"][k] - ev[k] for k in FWD_BWD}
+        want = {k: n * T for k, n in zip(FWD_BWD, per_iter)}
+        if got_eval != want_eval or train != want or n_fwd == 0:
+            raise AssertionError(f"{name} epoch {epoch}: {T} iterations launched {train} "
+                                 f"(expected {want}); {n_fwd} eval forwards launched "
+                                 f"{got_eval} (expected {want_eval})")
+    print(f"phase 6: {name}: 2 epochs of {T} iterations (1 + resume), "
+          f"{runs[0]['eval']['forwards']} eval forwards an epoch; launches a training "
+          f"iteration {dict(zip(FWD_BWD, per_iter))}, an eval forward 2/2/0/0; Adam "
+          f"count {count_after_one} → {2 * T} across the resume", flush=True)
+
+
+def check_best_reproduces(load_checkpoint, Segmentator, make_eval_all_step, eval_dice,
+                          name, run, best_glob, entry, dice_col, trainer) -> None:
+    """The best checkpoint, reloaded into a fresh Segmentator (Adam state
+    included), gives its epoch's CSV 2D val dice on the trainer's val set."""
+    (best,) = run.glob(best_glob)
+    sd = load_checkpoint(best)
+    seg = Segmentator.from_state_dict(sd[entry], device="cuda")
+    dice2d = eval_dice(make_eval_all_step(seg, 4), trainer.val_dev, trainer.val_buckets)["dice2d"]
+    epoch = int(sd["epoch"] if "epoch" in sd else sd["best_epoch"])
+    row = _csv_rows(run)[epoch]
+    for i in (1, 2, 3):
+        csv_v = float(row[f"{dice_col}_{i}"])
+        if abs(dice2d[i] - csv_v) > 5.1e-5:
+            raise AssertionError(f"{name}: {best.name} (epoch {epoch}) gives {dice_col}_{i} "
+                                 f"{dice2d[i]:.6f}, the CSV {csv_v}")
+    print(f"phase 6: {name}: {best.name} (epoch {epoch}) reproduces its 2D val dice "
+          f"{[round(float(d), 6) for d in dice2d[1:]]}", flush=True)
+
+
+def check_vat_without_term(torch, pk, trainer, make_vat_epoch, ce) -> dict:
+    """VAT's variant without the adversarial term (λ_adv = 0): 2 iterations
+    on the trained CLI's model launch 2/2/2/2 an iteration."""
+    idx_lab, idx_unlab = trainer.draw_indices()
+    epoch = make_vat_epoch(trainer.segmentator, ce, 4, False, True, False,
+                           trainer.eps, trainer.xi, trainer.ip)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    m = epoch(trainer._img_cat, trainer._gt_cat, idx_lab[:2], idx_unlab[:2], gen, 1e-3, 0.0)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    if launches != dict.fromkeys(pk.KERNELS, 4) or not bool(torch.isfinite(m["sup_loss"]).all()):
+        raise AssertionError(f"VAT without its term: 2 iterations launched {launches}, "
+                             f"sup {m['sup_loss']}")
+    print(f"phase 6: VAT with λ_adv = 0, 2 iterations: launches {launches}", flush=True)
+    return {k: v // 2 for k, v in launches.items()}
+
+
+class _Float64Train:
+    """What ``vat_perturbation`` calls of a Segmentator, on the CPU in
+    float64 with float64 logits: the reference direction of r_adv."""
+
+    def __init__(self, net, BatchNorm):
+        self.net = net
+        self.batch_norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
+
+    def apply_train(self, x, update_stats=True):
+        self.net.train()
+        for m in self.batch_norms:
+            m.update_stats = update_stats
+        try:
+            return self.net(x)
+        finally:
+            for m in self.batch_norms:
+                m.update_stats = True
+
+
+def check_vat_perturbation(torch, val):
+    """VAT's r_adv on the card from the trained results/ACDC_vat weights, 4
+    val slices at 256² and one noise draw, at the CLI's precision (PyTorch's
+    defaults: TF32 convolutions) and with TF32 off; the same weights,
+    slices and noise in float64 on the CPU. Fails unless every sample's
+    ‖r_adv‖ is ε to 1e-3 relative at the CLI's precision; returns the
+    norms and the cosines to the float64 direction, for both precisions."""
+    from dct_tpu_torch.adversarial import vat_perturbation
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.models.layers import BatchNorm
+    sd = load_checkpoint("results/ACDC_vat/best.ckpt")["segmentator"]
+    eps, xi = 10.0, 1e-6                      # configs/acdc_vat.yaml
+    img = torch.from_numpy(val.data["img"][:4]).float()[..., None] / 255.0
+    d = torch.randn(img.shape, generator=torch.Generator().manual_seed(4))
+    net = Segmentator.from_state_dict(sd, device="cpu").net.double()
+    _, r_ref = vat_perturbation(_Float64Train(net, BatchNorm), img.double(), xi, eps, 1,
+                                d=d.double())
+    out = {}
+    for precision, scope in (("cli", contextlib.nullcontext), ("tf32_off", tf32_off)):
+        seg = Segmentator.from_state_dict(sd, device="cuda")
+        with scope(torch):
+            _, r_card = vat_perturbation(seg, img.cuda(), xi, eps, 1, d=d.cuda())
+        a, b = r_card.cpu().double().flatten(1), r_ref.flatten(1)
+        norms = a.norm(dim=1)
+        out[precision] = {"norms": [round(float(n), 6) for n in norms],
+                          "cosines": [round(float(c), 6)
+                                      for c in (a * b).sum(1) / (norms * b.norm(dim=1))]}
+    if not all(abs(n / eps - 1) < 1e-3 for n in out["cli"]["norms"]):
+        raise AssertionError(f"VAT r_adv norms {out['cli']['norms']} on the card, "
+                             f"expected ε = {eps}")
+    return out
 
 
 def profile_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, gen):

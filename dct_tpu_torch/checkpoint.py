@@ -6,8 +6,11 @@ dct_tpu's layout (flax parameter trees, see ``utils/convert.py``), so either
 package can rebuild a model from the file alone. Torch tensors are written
 as numpy arrays.
 
-:func:`load_checkpoint` unpickles numpy arrays and builtin containers only:
-a pickle that names any other class (an optax optimizer state, say) raises
+:func:`load_checkpoint` unpickles numpy arrays and builtin containers, and
+reads the two optax classes of dct_tpu's Adam state, ``(EmptyState(),
+ScaleByAdamState(count, mu, nu))``, as stand-ins of this module's own
+without importing optax (``utils/convert.py:load_adam_state`` maps them
+onto torch's Adam). A pickle that names any other class raises
 ``pickle.UnpicklingError`` instead of importing that class's package.
 """
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import importlib
 import pickle
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, NamedTuple, Union
 
 import torch
 
@@ -25,6 +28,24 @@ _ALLOWED = {("numpy", "dtype"), ("numpy", "ndarray"),
             ("numpy.core.numeric", "_frombuffer"),
             ("numpy.core.multiarray", "_reconstruct"),
             ("numpy.core.multiarray", "scalar")}
+
+
+class EmptyState(NamedTuple):
+    """Stands in for ``optax.EmptyState``: the state of the L2 link ahead
+    of Adam in dct_tpu's optimizer chain."""
+
+
+class ScaleByAdamState(NamedTuple):
+    """Stands in for ``optax.ScaleByAdamState``: the step count and both
+    moments as flax parameter trees."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+_OPTAX = {("optax._src.base", "EmptyState"): EmptyState,
+          ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState}
 
 
 def _to_numpy(tree: Any) -> Any:
@@ -50,11 +71,13 @@ def save_checkpoint(path: Union[str, Path], payload: Dict[str, Any]) -> None:
 
 class _NumpyUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
+        if (module, name) in _OPTAX:
+            return _OPTAX[module, name]
         canonical = module.replace("numpy._core", "numpy.core", 1)
         if (canonical, name) not in _ALLOWED:
             raise pickle.UnpicklingError(
-                f"checkpoint names {module}.{name}; only numpy arrays and "
-                "builtin containers are read")
+                f"checkpoint names {module}.{name}; only numpy arrays, "
+                "builtin containers and optax's Adam state are read")
         for mod in dict.fromkeys((module, canonical,
                                   canonical.replace("numpy.core", "numpy._core", 1))):
             try:

@@ -1,0 +1,57 @@
+"""What the port's entry points share: ``--device``, dct_tpu's YAML configs
+with dotted overrides, the models, the supervised loss and the patient
+regex, read from the config as dct_tpu's CLIs read them."""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from . import resolve_device
+from .config import yaml_parser
+from .losses import get_loss_fn
+from .models import Segmentator
+from .train.trainer import DEFAULT_GRP_REGEX
+
+
+def parse_args(argv: Optional[List[str]], default_config: str
+               ) -> Tuple[Dict[str, Any], torch.device]:
+    """``[--device cuda|cpu] [--config path] A.B=value ...`` → (config,
+    device). The device is resolved first: without a card and without
+    ``--device cpu`` this raises before anything is read."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda",
+                     help="cuda (default: the current card) or cpu")
+    args, rest = pre.parse_known_args(argv)
+    device = resolve_device(args.device)
+    return yaml_parser(default_config, rest), device
+
+
+def build_segmentators(config: Dict[str, Any], generator: torch.Generator,
+                       device, n: int) -> List[Segmentator]:
+    """``n`` Segmentators from one Arch/Optim/Scheduler block, each
+    initialised from its own seed drawn from ``generator``."""
+    seeds = torch.randint(0, 2**62, (n,), generator=generator).tolist()
+    return [Segmentator(config["Arch"], config["Optim"], config["Scheduler"],
+                        torch.Generator().manual_seed(s), device=device)
+            for s in seeds]
+
+
+def supervised_loss(config: Dict[str, Any]):
+    """The ``Loss`` block (default: plain cross-entropy) as a callable."""
+    loss_cfg = dict(config.get("Loss", {"name": "cross_entropy"}))
+    return get_loss_fn(loss_cfg.pop("name"), **loss_cfg)
+
+
+def grp_regex(config: Dict[str, Any], loader: str) -> str:
+    """The patient regex of the ``loader`` block's PatientSampler, else
+    ACDC's."""
+    bs_cfg = config.get(loader, {}).get("batch_sampler")
+    return bs_cfg[1]["grp_regex"] if bs_cfg else DEFAULT_GRP_REGEX
+
+
+def reject_parallel(trainer_cfg: Dict[str, Any]) -> None:
+    if trainer_cfg.get("parallel") is not None:
+        raise NotImplementedError(
+            "Trainer.parallel is not ported yet (ROADMAP item 15, parallel/)")

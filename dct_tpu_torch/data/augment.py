@@ -67,6 +67,14 @@ def augment_batch_with_thetas(img: torch.Tensor, gt: torch.Tensor,
     return im_a, gt_a
 
 
+def apply_thetas(x: torch.Tensor, thetas: torch.Tensor,
+                 method: str = "bilinear") -> torch.Tensor:
+    """Warp (B,H,W) or (B,H,W,C) by given per-sample (B,2,3) thetas, zero
+    outside: Mean-Teacher warps the student's view and replays the same
+    warp on the teacher's probabilities with it."""
+    return affine_warp(x, thetas, method, 0.0)
+
+
 def warp_gathered_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
                      thetas: torch.Tensor, dtype=torch.float32
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,7 +7,7 @@ and layout."""
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,16 +44,19 @@ def normalize_gather(img_u8: torch.Tensor, gt_u8: torch.Tensor,
 
 
 def gather_augment_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
-                      idx: torch.Tensor, generator: torch.Generator,
-                      dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                      idx: torch.Tensor, generator: Optional[torch.Generator],
+                      dtype=torch.float32, thetas: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``normalize_gather`` + one nearest warp of the gathered grayscale
-    batch, with thetas drawn from ``generator``."""
+    batch, by ``thetas`` (B,2,3) when given, else by thetas drawn from
+    ``generator``."""
     if img_u8.dim() != 3:
         raise NotImplementedError("augmenting multi-channel datasets is "
                                   "not ported yet (a later slice)")
-    h, w = img_u8.shape[1], img_u8.shape[2]
-    thetas = sample_aug_thetas(generator, idx.shape[0], h, w).to(img_u8.device)
-    return warp_gathered_u8(img_u8[idx], gt_u8[idx], thetas, dtype)
+    if thetas is None:
+        thetas = sample_aug_thetas(generator, idx.shape[0], img_u8.shape[1],
+                                   img_u8.shape[2])
+    return warp_gathered_u8(img_u8[idx], gt_u8[idx], thetas.to(img_u8.device), dtype)
 
 
 class EpochBatcher:

@@ -47,12 +47,28 @@ def kl_div_2d(p_prob: torch.Tensor, y_prob: torch.Tensor,
     return out.mean() if reduce else out
 
 
+def kl_div_2d_logits(p_logit: torch.Tensor, y_logit: torch.Tensor,
+                     reduce: bool = False) -> torch.Tensor:
+    """KL(softmax(y) ‖ softmax(p)) pixelwise map from logits, with log-softmax
+    on both sides (the VAT power iteration's divergence)."""
+    logp = torch.log_softmax(p_logit, dim=-1)
+    logy = torch.log_softmax(y_logit, dim=-1)
+    out = torch.sum(torch.exp(logy) * (logy - logp), dim=-1)
+    return out.mean() if reduce else out
+
+
 def jsd_2d(probs) -> torch.Tensor:
     """Jensen-Shannon divergence map over K distributions: probs (K, ..., C)
     (or a list of (..., C)) → (...) map H(mean_k p_k) − mean_k H(p_k)."""
     if isinstance(probs, (list, tuple)):
         probs = torch.stack(probs, dim=0)
     return entropy_2d(probs.mean(dim=0)) - entropy_2d(probs).mean(dim=0)
+
+
+def mse_probs(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Mean squared error between two prob tensors (the Mean-Teacher
+    consistency)."""
+    return torch.mean((p - q) ** 2)
 
 
 def get_loss_fn(name: str, **kwargs):

@@ -51,13 +51,17 @@ class BatchNorm(nn.Module):
     dtype) and folds the *biased* batch variance, recovered from the saved
     inverse std, into the running variance — torch's ``nn.BatchNorm2d`` folds
     the unbiased one. Running statistics stay fp32 whatever the activation
-    dtype; the output takes the input's dtype."""
+    dtype; the output takes the input's dtype. With ``update_stats`` False,
+    train mode normalises with the batch statistics and leaves the running
+    ones as they are (VAT's perturbed forwards, whose statistics dct_tpu
+    throws away)."""
 
     def __init__(self, channels: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM) -> None:
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -72,6 +76,8 @@ class BatchNorm(nn.Module):
                                 False, 0.0, self.eps)
         y, mean, invstd = torch.native_batch_norm(x, weight, bias, None, None,
                                                   True, 0.0, self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():     # running = m·running + (1 − m)·batch
             var = invstd.pow(-2) - self.eps
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), 1 - self.momentum)

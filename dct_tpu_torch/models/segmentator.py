@@ -19,9 +19,10 @@ import torch
 from .. import resolve_device
 from ..optim import build_optimizer
 from ..schedules import get_lr_schedule
-from ..utils.convert import params_from_jax, params_to_jax
+from ..utils.convert import (adam_state_to_jax, load_adam_state,
+                             params_from_jax, params_to_jax)
 from . import get_arch
-from .layers import init_weights_
+from .layers import BatchNorm, init_weights_
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,15 +46,25 @@ class Segmentator:
         net = get_arch(self.arch_name, arch_params)
         init_weights_(net, generator)      # on the CPU: draws are device-free
         self.net = net.to(self.device, memory_format=torch.channels_last)
+        self._batch_norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
         self.optimizer = build_optimizer(optim_dict, self.net.parameters())
         self.lr_fn = get_lr_schedule(scheduler_dict, float(optim_dict["lr"]))
         self.epoch = 0
 
-    def apply_train(self, x: torch.Tensor) -> torch.Tensor:
+    def apply_train(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         """Forward in train mode: BatchNorm normalises with the batch
-        statistics and updates its running ones. Returns fp32 logits."""
+        statistics and updates its running ones, unless ``update_stats`` is
+        False. Returns fp32 logits."""
         self.net.train()
-        return self.net(x.to(self.compute_dtype)).float()
+        if update_stats:
+            return self.net(x.to(self.compute_dtype)).float()
+        for m in self._batch_norms:
+            m.update_stats = False
+        try:
+            return self.net(x.to(self.compute_dtype)).float()
+        finally:
+            for m in self._batch_norms:
+                m.update_stats = True
 
     def apply_eval(self, x: torch.Tensor) -> torch.Tensor:
         """Forward in eval mode (running BatchNorm statistics)."""
@@ -72,8 +83,8 @@ class Segmentator:
         self.epoch += 1
 
     # self-describing checkpoint payload (a checkpoint's ``segmentator``
-    # entry), in dct_tpu's layout: flax parameter trees. The optimizer state
-    # is not in it: the trainer writes it to opt_state.ckpt
+    # entry), in dct_tpu's layout: flax parameter trees, and the Adam state
+    # as dct_tpu's tree layout in plain dicts (``utils/convert.py``)
     @property
     def state_dict(self) -> Dict[str, Any]:
         params, batch_stats = params_to_jax(self.net.state_dict())
@@ -82,11 +93,16 @@ class Segmentator:
                 "scheduler_dict": self.scheduler_dict,
                 "net_state_dict": params,
                 "batch_stats": batch_stats,
+                "optim_state_dict": adam_state_to_jax(self.optimizer, self.net),
                 "scheduler_state_dict": {"epoch": self.epoch}}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Weights, LR epoch and, where the payload has it (dct_tpu's optax
+        state or the port's), the Adam state."""
         self.net.load_state_dict(params_from_jax(sd["net_state_dict"],
                                                  sd["batch_stats"]))
+        if "optim_state_dict" in sd:
+            load_adam_state(self.optimizer, self.net, sd["optim_state_dict"])
         self.epoch = int(sd["scheduler_state_dict"]["epoch"])
 
     @classmethod

@@ -31,24 +31,21 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .. import resolve_device
 from ..checkpoint import load_checkpoint, save_checkpoint
-from ..config import save_yaml
 from ..data.dataset import MedicalImageDataset
 from ..data.pipeline import DeviceDataset, InfiniteBatcher, PatientBuckets
 from ..models.segmentator import Segmentator
 from ..optim import build_optimizer
 from ..schedules import get_weight_scheduler
-from ..utils.convert import adam_state_from_numpy, adam_state_to_numpy
-from ..utils.general import check_finite_losses, fold_in, save_images
+from ..utils.convert import load_adam_state, stack_adam_states, unstack_adam_state
+from ..utils.general import check_finite_losses, save_images
 from ..utils.logging import ScalarWriter, resume_records, write_metrics_csv
 from .steps import (make_cotrain_epoch, make_eval_all_models_step,
                     make_eval_patient_step)
+from .trainer import (DEFAULT_GRP_REGEX, check_device, epoch_generator, make_save_dir,
+                      write_csv)
 
 ITERS_PER_EPOCH = 300
-# patient id of an ACDC slice stem; here until the supervised Trainer
-# (dct_tpu/train/trainer.py) is ported
-DEFAULT_GRP_REGEX = r"(patient\d+_\d+)_\d+"
 
 
 class CoTrainer:
@@ -77,20 +74,14 @@ class CoTrainer:
         assert len(segmentators) >= 1
         assert len({id(s) for s in segmentators}) == len(segmentators)
         assert set(criterions.keys()) == {"sup", "jsd", "adv"}, criterions.keys()
-        self.device = resolve_device(device)
-        for s in segmentators:
-            if s.device != self.device:
-                raise ValueError(f"segmentator on {s.device}, trainer on {self.device}")
+        self.device = check_device(device, segmentators)
 
         self.K = len(segmentators)
         self.segmentators = segmentators
         self.seg = segmentators[0]
         self.criterions = criterions
         self.max_epoch = max_epoch
-        self.save_dir = Path(save_dir)
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        if whole_config:
-            save_yaml(whole_config, self.save_dir / "config.yml")
+        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml")
         self.C = self.seg.arch_dict["num_classes"]
         self.axises = axises if axises is not None else [1, 2, 3]
         self.metricname = metricname
@@ -206,8 +197,7 @@ class CoTrainer:
     def _write_metrics(self, records: List[dict]) -> None:
         """metrics.csv (all columns), metrics_{s}.csv (model s's columns)
         and the val dice histories as .npy."""
-        columns = list(dict.fromkeys(k for r in records for k in r if k != "epoch"))
-        write_metrics_csv(self.save_dir / self.metricname, records, columns)
+        columns = write_csv(self.save_dir / self.metricname, records)
         for s in range(self.K):
             cols = [c for c in columns if c.endswith(tuple(
                 f"_{s}_{i}" for i in self.axises)) or c == f"sup_loss_{s}"]
@@ -230,8 +220,7 @@ class CoTrainer:
                      + self.unlab_batcher.take(T)).astype(np.int32)  # (T,Bu)
         pairs = np.stack([np.sort(self.rs.choice(self.K, 2, replace=self.K < 2))
                           for _ in range(T)]).astype(np.int32)
-        generator = torch.Generator(device=self.device).manual_seed(
-            fold_in(self.seed, epoch))
+        generator = epoch_generator(self.device, self.seed, epoch)
         lr = self.seg.lr(epoch)
         lam_cot = self.cot_scheduler.value
         lam_adv = self.adv_scheduler.value
@@ -304,11 +293,14 @@ class CoTrainer:
 
     def checkpoint(self, metric: np.ndarray, epoch: int) -> None:
         """Per-model best/last checkpoints in dct_tpu's payload layout, and
-        every model's optimizer state in ``opt_state.ckpt``. Called after
-        the epoch's scheduler step, so each Segmentator's epoch is
-        ``epoch + 1``."""
+        every model's Adam state, stacked over K in dct_tpu's tree layout,
+        in ``opt_state.ckpt``. Called after the epoch's scheduler step, so
+        each Segmentator's epoch is ``epoch + 1``."""
+        adam_states = []
         for i, seg in enumerate(self.segmentators):
-            payload = {"segmentator": seg.state_dict,
+            seg_sd = seg.state_dict
+            adam_states.append(seg_sd.pop("optim_state_dict"))
+            payload = {"segmentator": seg_sd,
                        "best_score": float(self.best_scores[i]),
                        "best_epoch": epoch,
                        "cot_scheduler": self.cot_scheduler.state_dict(),
@@ -319,8 +311,7 @@ class CoTrainer:
                 payload = {**payload, "best_score": float(metric[i])}
                 save_checkpoint(self.save_dir / f"best_{i}.ckpt", payload)
         save_checkpoint(self.save_dir / "opt_state.ckpt",
-                        {"opt_state": [adam_state_to_numpy(s.optimizer)
-                                       for s in self.segmentators]})
+                        {"opt_state": stack_adam_states(adam_states)})
 
     def _load_checkpoint(self, checkpoint_dir: str) -> None:
         paths = sorted(Path(checkpoint_dir).glob("last_*.ckpt"))
@@ -338,16 +329,14 @@ class CoTrainer:
         if not opt_path.exists():
             return
         try:
-            states = load_checkpoint(opt_path)["opt_state"]
-            if not isinstance(states, list) or len(states) != self.K:
-                raise ValueError("not the port's per-model Adam states")
+            states = unstack_adam_state(load_checkpoint(opt_path)["opt_state"], self.K)
             for seg, st in zip(self.segmentators, states):
-                adam_state_from_numpy(seg.optimizer, st)
+                load_adam_state(seg.optimizer, seg.net, st)
         except (pickle.UnpicklingError, EOFError, KeyError, TypeError,
                 ValueError) as e:
-            # dct_tpu's file holds optax state (or the file is truncated):
-            # the optimizers start afresh, as dct_tpu does with an
-            # unreadable file
+            # a truncated file, or a state this bridge does not map (dct_tpu's
+            # ``fused`` flat state, another architecture): the optimizers
+            # start afresh, as dct_tpu does with an unreadable file
             for seg in self.segmentators:
                 seg.optimizer = build_optimizer(seg.optim_dict, seg.net.parameters())
             print(f">>> opt_state.ckpt unreadable ({e}); reinitializing optimizer")

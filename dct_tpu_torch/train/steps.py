@@ -1,6 +1,11 @@
-"""The K-model co-training epoch (``dct_tpu/train/steps.py:make_cotrain_epoch``,
-unfused forward) and the per-patient eval steps
-(``make_eval_patient_step``, ``make_eval_all_models_step``).
+"""The supervised epoch (``dct_tpu/train/steps.py:make_supervised_epoch``),
+the K-model co-training epoch (``make_cotrain_epoch``, unfused forward) and
+the per-patient eval steps (``make_eval_patient_step``,
+``make_eval_all_step``, ``make_eval_all_models_step``).
+
+A supervised iteration gathers its batch, warps it (nearest, image and
+labels together) when augmenting, runs one train-mode forward, and steps
+Adam on the CE.
 
 One iteration, in dct_tpu's order:
 
@@ -36,8 +41,9 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..adversarial import fgsm
 from ..data.augment import augment_batch_with_thetas, sample_aug_thetas
-from ..data.pipeline import normalize_gather
+from ..data.pipeline import gather_augment_u8, normalize_gather
 from ..losses import jsd_2d, kl_div_2d
 from ..models.segmentator import Segmentator
 from ..optim import set_lr
@@ -61,6 +67,37 @@ def _dice_rows(logits: torch.Tensor, gt: torch.Tensor, C: int) -> torch.Tensor:
     return dice_coef(class2one_hot(gt, C), pred_oh)
 
 
+def make_supervised_epoch(seg: Segmentator, loss_fn: Callable, C: int,
+                          augment: bool) -> Callable:
+    """``epoch(img_u8, gt_u8, idx (T,B), generator, lr, thetas=None)`` trains
+    ``seg`` in place and returns {loss (T,), dice (T,B,C)} on the device.
+    ``thetas`` (T,B,2,3), when given, replaces the augmentation draws from
+    ``generator``."""
+
+    def epoch(img_u8: torch.Tensor, gt_u8: torch.Tensor, idx,
+              generator: Optional[torch.Generator], lr: float,
+              thetas: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        idx = torch.as_tensor(np.asarray(idx), device=img_u8.device).long()
+        set_lr(seg.optimizer, lr)
+        steps = []
+        for t in range(idx.shape[0]):
+            if augment:
+                img, gt = gather_augment_u8(img_u8, gt_u8, idx[t], generator,
+                                            thetas=None if thetas is None else thetas[t])
+            else:
+                img, gt = normalize_gather(img_u8, gt_u8, idx[t])
+            logits = seg.apply_train(img)
+            loss = loss_fn(logits, gt)
+            seg.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            seg.optimizer.step()
+            steps.append({"loss": loss.detach(),
+                          "dice": _dice_rows(logits.detach(), gt, C)})
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    return epoch
+
+
 def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
                        sup_loss: Callable, train_jsd: bool, train_adv: bool,
                        augment_labeled: bool, augment_unlabeled: bool,
@@ -76,17 +113,6 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
     draws from ``generator``.
     """
     K = len(segs)
-
-    def fgsm_generate(seg_b: Segmentator, img_cat: torch.Tensor,
-                      gt_b: torch.Tensor):
-        x = img_cat.detach().requires_grad_(True)
-        logits = seg_b.apply_train(x)
-        pseudo = torch.argmax(logits[gt_b.shape[0]:].detach(), dim=-1)
-        loss = sup_loss(logits, torch.cat([gt_b, pseudo], dim=0))
-        (g,) = torch.autograd.grad(loss, [x])
-        adv_img = (img_cat + eps_fgsm * torch.sign(g)).detach()
-        real_probs = torch.softmax(logits.detach(), dim=-1)
-        return adv_img, real_probs
 
     def one_step(img_u8, gt_u8, idx_l, idx_u, pair, generator, lam_cot,
                  lam_adv, th) -> Dict[str, torch.Tensor]:
@@ -122,8 +148,9 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
         if train_adv:
             # (3) FGSM diversity: attack model b, feed the result to model a
             a, b = (0, 1) if K == 2 else (int(pair[0]), int(pair[1]))
-            adv_img, real_probs = fgsm_generate(
-                segs[b], torch.cat([lab_img[b], unlab_img], dim=0), lab_gt[b])
+            adv_img, _, real_probs = fgsm(
+                segs[b], torch.cat([lab_img[b], unlab_img], dim=0), lab_gt[b],
+                sup_loss, eps_fgsm)
             adv_probs = torch.softmax(segs[a].apply_train(adv_img), dim=-1)
             adv_loss = kl_div_2d(adv_probs, real_probs).mean()
             total = total + lam_adv * adv_loss
@@ -204,6 +231,17 @@ def make_eval_patient_step(seg: Segmentator, C: int) -> Callable:
         out = _patient_metrics(logits, gt, gt_oh, maskf)
         out["pred"] = torch.argmax(logits, dim=-1)
         return out
+
+    return step
+
+
+def make_eval_all_step(seg: Segmentator, C: int) -> Callable:
+    """One model × all patients: ``make_eval_all_models_step`` with the
+    model axis dropped → {dice2d (P,L,C), dice3d (P,C), loss (P,)}."""
+    step_all = make_eval_all_models_step([seg], C)
+
+    def step(img_u8, gt_u8, indices, masks) -> Dict[str, torch.Tensor]:
+        return {k: v[:, 0] for k, v in step_all(img_u8, gt_u8, indices, masks).items()}
 
     return step
 

@@ -20,31 +20,17 @@ float32`` (the configs' setting) cuDNN convolutions run in TF32
 """
 from __future__ import annotations
 
-import argparse
 import sys
 
-import torch
-
-from . import resolve_device
-from .config import yaml_parser
+from .cli import (build_segmentators, grp_regex, parse_args, reject_parallel,
+                  supervised_loss)
 from .data.splits import get_dataset_split
 from .losses import get_loss_fn
-from .models import Segmentator
 from .train import CoTrainer
-from .train.cotrainer import DEFAULT_GRP_REGEX, ITERS_PER_EPOCH
+from .train.cotrainer import ITERS_PER_EPOCH
 from .utils.general import fix_all_seed
 
 DEFAULT_CONFIG = "configs/acdc_cotraining.yaml"
-
-
-def get_models(config, generator: torch.Generator, device):
-    """K Segmentators from one Arch/Optim/Scheduler block, each initialised
-    from its own seed drawn from ``generator``."""
-    n = int(config["Lab_Partitions"]["num_models"])
-    seeds = torch.randint(0, 2**62, (n,), generator=generator).tolist()
-    return [Segmentator(config["Arch"], config["Optim"], config["Scheduler"],
-                        torch.Generator().manual_seed(s), device=device)
-            for s in seeds]
 
 
 def check_trainer_config(trainer_cfg) -> None:
@@ -53,9 +39,7 @@ def check_trainer_config(trainer_cfg) -> None:
         raise NotImplementedError(
             "Trainer.adv_dtype is not ported yet (ROADMAP item 9, with the "
             "fused forward)")
-    if trainer_cfg.get("parallel") is not None:
-        raise NotImplementedError(
-            "Trainer.parallel is not ported yet (ROADMAP item 15, parallel/)")
+    reject_parallel(trainer_cfg)
     per = trainer_cfg.get("iters_per_dispatch")
     iters = int(trainer_cfg.get("iters_per_epoch", ITERS_PER_EPOCH))
     if per:
@@ -63,12 +47,7 @@ def check_trainer_config(trainer_cfg) -> None:
 
 
 def main(argv=None) -> CoTrainer:
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default="cuda",
-                     help="cuda (default: the current card) or cpu")
-    args, rest = pre.parse_known_args(argv)
-    device = resolve_device(args.device)
-    config = yaml_parser(DEFAULT_CONFIG, rest)
+    config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
     check_trainer_config(trainer_cfg)
     seed = int(config.get("Seed", 1234))
@@ -76,17 +55,10 @@ def main(argv=None) -> CoTrainer:
 
     dataset_name = config.get("Dataset", {}).get("name", "acdc")
     labeled_sets, unlab_set, val_set = get_dataset_split(config, dataset_name)
-    segmentators = get_models(config, generator, device)
-
-    loss_cfg = dict(config.get("Loss", {"name": "cross_entropy"}))
-    sup_loss = get_loss_fn(loss_cfg.pop("name"), **loss_cfg)
-    criterions = {"sup": sup_loss, "jsd": get_loss_fn("jsd"),
+    segmentators = build_segmentators(
+        config, generator, device, int(config["Lab_Partitions"]["num_models"]))
+    criterions = {"sup": supervised_loss(config), "jsd": get_loss_fn("jsd"),
                   "adv": get_loss_fn("jsd")}
-
-    grp_regex = DEFAULT_GRP_REGEX
-    bs_cfg = config.get("Lab_Dataloader", {}).get("batch_sampler")
-    if bs_cfg:
-        grp_regex = bs_cfg[1]["grp_regex"]
 
     cotrainer = CoTrainer(
         segmentators=segmentators,
@@ -104,7 +76,7 @@ def main(argv=None) -> CoTrainer:
         adv_training_dict=config.get("Adv_Training", {}),
         batch_size=int(config["Lab_Dataloader"]["batch_size"]),
         unlab_batch_size=int(config["Unlab_Dataloader"]["batch_size"]),
-        grp_regex=grp_regex,
+        grp_regex=grp_regex(config, "Lab_Dataloader"),
         iters_per_epoch=int(trainer_cfg.get("iters_per_epoch", ITERS_PER_EPOCH)),
         seed=seed,
         nan_policy=trainer_cfg.get("nan_policy", "warn"),

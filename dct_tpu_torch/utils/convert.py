@@ -1,5 +1,5 @@
 """The weight bridge: flax ENet parameter trees ↔ this port's state_dict,
-and the port's Adam state ↔ numpy.
+and dct_tpu's optax Adam state ↔ torch's Adam state.
 
 The port names every module as dct_tpu names it, so a flax path maps to a
 state_dict key by joining it with dots and renaming the leaf:
@@ -16,6 +16,14 @@ state_dict key by joining it with dots and renaming the leaf:
 The trees are nested dicts of numpy arrays; this module never imports JAX.
 ``params_to_jax`` is the exact inverse of ``params_from_jax``: the port
 writes its checkpoints in dct_tpu's flax layout.
+
+Adam's moments are trees of the parameters' shapes, so they take the same
+leaf mapping: optax's ``mu`` is torch's ``exp_avg``, ``nu`` is
+``exp_avg_sq``, and the one ``count`` is every parameter's ``step``. Both
+optax and torch fold L2 into the gradient ahead of the moments, so the
+state carries over unchanged. The port writes the state as dct_tpu's tree
+layout in plain dicts, ``{"count", "mu", "nu"}``, and reads that or optax's
+``(EmptyState(), ScaleByAdamState(count, mu, nu))``.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
 def _to_torch(path: Tuple[str, ...], arr) -> Tuple[str, torch.Tensor]:
     leaf = path[-1]
     if leaf not in _LEAF:
-        raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
+        raise KeyError(f"unmapped flax leaf {'/'.join(map(str, path))}")
     a = np.array(arr)
     if leaf == "kernel":
         if path[-2] in _DECONV:
@@ -66,14 +74,24 @@ def params_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
     return out
 
 
+def _take(tree: Mapping, i: int) -> Dict[str, Any]:
+    """Entry ``i`` of every leaf's leading axis."""
+    return {key: _take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for key, v in tree.items()}
+
+
+def _stack(trees: List[Mapping]) -> Dict[str, Any]:
+    """Trees of one structure → one tree with a leading axis on every leaf."""
+    return {key: _stack([t[key] for t in trees]) if isinstance(v, Mapping)
+            else np.stack([np.asarray(t[key]) for t in trees])
+            for key, v in trees[0].items()}
+
+
 def params_from_jax_stacked(params: Dict[str, Any], batch_stats: Dict[str, Any],
                             k: int) -> List[Dict[str, torch.Tensor]]:
     """Stacked K-model trees (a leading K axis on every leaf, as dct_tpu's
     ``stack_states`` builds them) → K state_dicts."""
-    def take(tree, i):
-        return {key: take(v, i) if isinstance(v, Mapping)
-                else np.asarray(v)[i] for key, v in tree.items()}
-    return [params_from_jax(take(params, i), take(batch_stats, i))
+    return [params_from_jax(_take(params, i), _take(batch_stats, i))
             for i in range(k)]
 
 
@@ -109,23 +127,73 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
     return params, batch_stats
 
 
-def adam_state_to_numpy(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """``optimizer.state_dict()`` with every tensor as a numpy array (step
-    counts and both moments), for ``opt_state.ckpt``."""
-    sd = optimizer.state_dict()
-    return {"state": {i: {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                          else v for k, v in st.items()}
-                      for i, st in sd["state"].items()},
-            "param_groups": [dict(g) for g in sd["param_groups"]]}
+def adam_state_to_jax(optimizer: torch.optim.Optimizer,
+                      net: torch.nn.Module) -> Dict[str, Any]:
+    """``optimizer``'s Adam state for ``net``'s parameters in dct_tpu's tree
+    layout: ``{"count": int32 0-d array, "mu": exp_avg tree, "nu":
+    exp_avg_sq tree}``, zero moments before the first step."""
+    exp_avg, exp_avg_sq, count = {}, {}, 0
+    for name, p in net.named_parameters():
+        st = optimizer.state.get(p, {})
+        exp_avg[name] = st.get("exp_avg", torch.zeros_like(p))
+        exp_avg_sq[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        count = max(count, int(st.get("step", 0)))
+    return {"count": np.asarray(count, np.int32),
+            "mu": params_to_jax(exp_avg)[0], "nu": params_to_jax(exp_avg_sq)[0]}
 
 
-def adam_state_from_numpy(optimizer: torch.optim.Optimizer,
-                          state: Mapping[str, Any]) -> None:
-    """Load what ``adam_state_to_numpy`` wrote into ``optimizer``: the
-    moments go to each parameter's device, the step counts stay on the CPU
-    as torch's Adam keeps them."""
-    optimizer.load_state_dict({
-        "state": {int(i): {k: torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray)
-                           else v for k, v in st.items()}
-                  for i, st in state["state"].items()},
-        "param_groups": [dict(g) for g in state["param_groups"]]})
+def _adam_fields(state) -> Tuple[Any, Mapping, Mapping]:
+    """(count, mu, nu) of the port's ``{"count", "mu", "nu"}`` or of optax's
+    ``(EmptyState(), ScaleByAdamState(count, mu, nu))`` (dct_tpu's L2 +
+    Adam chain, as ``checkpoint.load_checkpoint`` reads it)."""
+    if isinstance(state, Mapping):
+        return state["count"], state["mu"], state["nu"]
+    if (isinstance(state, tuple) and len(state) == 2 and state[0] == ()
+            and getattr(state[1], "_fields", None) == ("count", "mu", "nu")):
+        return tuple(state[1])
+    raise TypeError(f"not an Adam state of dct_tpu's layout: {type(state).__name__}")
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module,
+                    state) -> None:
+    """Set ``optimizer``'s Adam state for ``net``'s parameters from one
+    model's state in dct_tpu's layout (either form of ``_adam_fields``).
+    The moments take each parameter's device, dtype and memory format; the
+    step count stays on the CPU, as torch's Adam keeps it. Raises KeyError
+    or ValueError when the trees do not match the parameters (another
+    architecture, a stacked state, or dct_tpu's ``fused`` flat state)."""
+    count, mu, nu = _adam_fields(state)
+    moments = params_from_jax(mu, {}), params_from_jax(nu, {})
+    params = dict(net.named_parameters())
+    for m in moments:
+        if m.keys() != params.keys():
+            raise KeyError("the Adam state's tree is not the net's parameters")
+        for name, p in params.items():
+            if m[name].shape != p.shape:
+                raise ValueError(f"Adam moment {name} has shape "
+                                 f"{tuple(m[name].shape)}, the parameter {tuple(p.shape)}")
+    step = float(np.asarray(count))
+    for name, p in params.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": torch.empty_like(p).copy_(moments[0][name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(moments[1][name])}
+
+
+def unstack_adam_state(state, k: int) -> List[Dict[str, Any]]:
+    """A K-model Adam state (a leading K axis on every moment and one count,
+    as dct_tpu's co-training keeps it) → K per-model states."""
+    count, mu, nu = _adam_fields(state)
+    for tree in (mu, nu):
+        for path, v in _walk(tree):
+            if np.shape(v)[:1] != (k,):
+                raise ValueError(f"Adam moment {'/'.join(map(str, path))} has "
+                                 f"shape {np.shape(v)}, not K={k} stacked models")
+    return [{"count": count, "mu": _take(mu, i), "nu": _take(nu, i)} for i in range(k)]
+
+
+def stack_adam_states(states: List[Mapping]) -> Dict[str, Any]:
+    """The inverse of ``unstack_adam_state`` for the port's states, which
+    step together and so share one count."""
+    return {"count": states[0]["count"], "mu": _stack([s["mu"] for s in states]),
+            "nu": _stack([s["nu"] for s in states])}

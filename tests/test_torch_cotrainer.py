@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from dct_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
+from dct_tpu.checkpoint import save_checkpoint as jax_save_checkpoint
 from dct_tpu.data.pipeline import PatientBuckets as JaxPatientBuckets
 from dct_tpu.data.splits import get_dataset_split as jax_get_dataset_split
 from dct_tpu.models import Segmentator as JaxSegmentator
 from dct_tpu.models.segmentator import stack_states
+from dct_tpu.optim import build_optimizer as jax_build_optimizer
 from dct_tpu.train import CoTrainer as JaxCoTrainer
 from dct_tpu.train.steps import make_eval_all_models_step as jax_eval_all_models
 from dct_tpu_torch.checkpoint import load_checkpoint
@@ -32,7 +34,7 @@ from dct_tpu_torch.data.pipeline import PatientBuckets
 from dct_tpu_torch.data.splits import get_dataset_split
 from dct_tpu_torch.models import Segmentator
 from dct_tpu_torch.train import CoTrainer
-from dct_tpu_torch.train.cotrainer import DEFAULT_GRP_REGEX
+from dct_tpu_torch.train.trainer import DEFAULT_GRP_REGEX
 from dct_tpu_torch.train.steps import make_eval_all_models_step
 from dct_tpu_torch.train_cotraining import main
 from dct_tpu_torch.utils.convert import params_from_jax, params_to_jax
@@ -326,12 +328,23 @@ def test_cli_checkpoint_has_dct_tpus_payload(cli_run, trained):
     assert type(got["best_score"]) is float and type(got["best_epoch"]) is int
 
 
-def test_dct_tpu_opt_state_reinitialises(cli_run, tmp_path, capsys):
-    """dct_tpu's opt_state.ckpt (optax classes) is not unpickled: one line
-    says so and the optimizers start afresh, the weights still load."""
+@pytest.mark.parametrize("bad", ["truncated", "fused"])
+def test_dct_tpu_opt_state_reinitialises(cli_run, trained, tmp_path, capsys, bad):
+    """An opt_state.ckpt the bridge cannot read restarts Adam with one line,
+    as dct_tpu does with an unreadable file, and the weights still load: a
+    truncated file, and dct_tpu's ``fused: true`` state (one flat moment
+    vector per dtype, no parameter tree). dct_tpu's per-leaf optax state
+    loads (tests/test_torch_checkpoint_optax.py)."""
     for name in ("last_0.ckpt", "last_1.ckpt"):
         shutil.copy(cli_run["run"] / name, tmp_path / name)
-    shutil.copy(TRAINED / "opt_state.ckpt", tmp_path / "opt_state.ckpt")
+    if bad == "truncated":
+        (tmp_path / "opt_state.ckpt").write_bytes((TRAINED / "opt_state.ckpt").read_bytes()[:4096])
+    else:
+        params = jax.tree_util.tree_map(lambda a, b: np.stack([a, b]),
+                                        trained[0][0]["segmentator"]["net_state_dict"],
+                                        trained[1][0]["segmentator"]["net_state_dict"])
+        fused = jax_build_optimizer({**ADAM, "fused": True}).init(params)
+        jax_save_checkpoint(tmp_path / "opt_state.ckpt", {"opt_state": fused})
     old = cli_run["resumed"]
     segs = [Segmentator(ARCH, ADAM, STEP, torch.Generator().manual_seed(i), device="cpu")
             for i in range(2)]

@@ -174,6 +174,19 @@ def test_entropy_kl_jsd_match_dct_tpu():
                                rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("name", ["kl_div_2d_logits", "mse_probs"])
+def test_vat_and_mean_teacher_losses_match_dct_tpu(name):
+    """VAT's KL from logits (gradient with respect to the perturbed logits)
+    and Mean-Teacher's MSE between probabilities: values and gradients."""
+    if name == "kl_div_2d_logits":
+        p, y = _logits_target(5, ignore=False)[0], _logits_target(6, ignore=False)[0]
+    else:
+        p, y = _probs(7, (2, 8, 8, 4)), _probs(8, (2, 8, 8, 4))
+    ref_fn, fn = getattr(jax_losses, name), getattr(losses, name)
+    _value_and_grad(lambda a: jnp.mean(ref_fn(a, jnp.asarray(y))),
+                    lambda a: torch.mean(fn(a, torch.from_numpy(y))), p)
+
+
 def test_get_loss_fn():
     logits, target = _logits_target(4, ignore=False)
     fn = losses.get_loss_fn("cross_entropy", weight=[1, 1, 1, 1])

@@ -1,5 +1,5 @@
 """Rules of the dct_tpu_torch package: it never imports JAX or dct_tpu, it
-imports where JAX cannot be imported, its CLI needs no pandas, and its
+imports where JAX cannot be imported, its CLIs need no pandas, and its
 entry points refuse to run on the CPU unless asked to."""
 import re
 import subprocess
@@ -8,6 +8,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+from dct_tpu_torch import train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
@@ -113,10 +115,34 @@ def test_cpu_path_builds_nothing():
     assert pool_kernels.LAUNCHES == before
 
 
-def test_cli_and_cotrainer_need_cuda_or_explicit_cpu(no_cuda, tmp_path):
+# each entry point: its trainer built with a segmentator on the CPU but no
+# device (the datasets are never reached), the CLI's own overrides for one
+# tiny epoch, the checkpoint it writes first and the line it prints
+CLIS = {
+    "train_cotraining": (
+        lambda seg, d: train.CoTrainer([seg], [None], None, None,
+                                       {"sup": None, "jsd": None, "adv": None}, save_dir=d),
+        ["Trainer.iters_per_epoch=1", "Lab_Dataloader.batch_size=2",
+         "Unlab_Dataloader.batch_size=2", "StartTraining.train_jsd=True"],
+        "best_0.ckpt", ">> epoch 0:"),
+    "train_sup": (lambda seg, d: train.Trainer(seg, {}, None, save_dir=d),
+                  [], "best.ckpt", ">> epoch 0:"),
+    "train_vat": (lambda seg, d: train.VatTrainer(seg, None, None, None, None, save_dir=d),
+                  ["Lab_Dataloader.batch_size=2"], "best.ckpt", ">> VAT epoch 0:"),
+    "train_mean_teacher": (
+        lambda seg, d: train.MeanTeacherTrainer(seg, seg, None, None, None, {"sup": None},
+                                                save_dir=d),
+        ["Lab_Dataloader.batch_size=2"], "best_*.ckpt", ">> MT epoch 0:"),
+}
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_cli_and_cotrainer_need_cuda_or_explicit_cpu(no_cuda, tmp_path, cli):
+    """The CLI and its trainer raise without a card unless told to run on
+    the CPU, before they write anything."""
+    import importlib
     from dct_tpu_torch.models import Segmentator
-    from dct_tpu_torch.train import CoTrainer
-    from dct_tpu_torch.train_cotraining import main
+    main = importlib.import_module(f"dct_tpu_torch.{cli}").main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main([f"Trainer.save_dir={tmp_path}"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -124,26 +150,29 @@ def test_cli_and_cotrainer_need_cuda_or_explicit_cpu(no_cuda, tmp_path):
     seg = Segmentator({"name": "enet", "num_classes": 4}, {"name": "Adam", "lr": 1e-3},
                       {"name": "StepLR", "step_size": 90},
                       torch.Generator().manual_seed(0), device="cpu")
-    crit = {"sup": None, "jsd": None, "adv": None}
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        CoTrainer([seg], [None], None, None, crit, save_dir=tmp_path)
+        CLIS[cli][0](seg, tmp_path)
     assert not any(tmp_path.iterdir())
 
 
-def test_cli_runs_without_pandas(tmp_path):
-    """In a process where importing pandas (and JAX, dct_tpu) raises: write
-    a tiny PNG tree, then one co-training epoch of one iteration through
-    the CLI on the CPU. TensorFlow is blocked too: TensorBoard's event
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_cli_runs_without_pandas(tmp_path, cli):
+    """In a process where importing pandas (and JAX, flax, optax, dct_tpu)
+    raises: write a tiny PNG tree, then one epoch of the CLI on the CPU with
+    its shipped config. TensorFlow is blocked too: TensorBoard's event
     writer imports it where it is installed, which takes longer than the
     run itself, and falls back to its own writer without it."""
+    _, overrides, ckpt, line = CLIS[cli]
     code = (
         "import sys\n"
         "for name in ('pandas', 'jax', 'flax', 'optax', 'dct_tpu', 'tensorflow'):\n"
         "    sys.modules[name] = None\n"
         "from pathlib import Path\n"
         "import numpy as np\n"
+        "import torch\n"
         "from PIL import Image\n"
-        "from dct_tpu_torch.train_cotraining import main\n"
+        f"from dct_tpu_torch.{cli} import main\n"
+        "torch.set_num_threads(1)   # 16² tensors; the test workers share the cores\n"
         "root = Path(sys.argv[1])\n"
         "rs = np.random.RandomState(0)\n"
         "for mode, n in (('train', 100), ('val', 2)):\n"
@@ -156,12 +185,11 @@ def test_cli_runs_without_pandas(tmp_path):
         "main(['--device', 'cpu', f'Dataset.root_dir={root}',\n"
         "      'Dataset.transform=segment_transform((16,16))',\n"
         "      f'Trainer.save_dir={root / \"run\"}', 'Trainer.max_epoch=1',\n"
-        "      'Trainer.iters_per_epoch=1', 'Lab_Dataloader.batch_size=2',\n"
-        "      'Unlab_Dataloader.batch_size=2', 'StartTraining.train_jsd=True'])\n"
-        "assert (root / 'run' / 'best_0.ckpt').is_file()\n"
+        f"      *{overrides!r}])\n"
+        f"assert list((root / 'run').glob({ckpt!r}))\n"
         "assert not any(k.split('.')[0] in ('pandas', 'jax')\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "tree")],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert ">> epoch 0:" in proc.stdout
+    assert line in proc.stdout
