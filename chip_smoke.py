@@ -16,8 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at ragged shapes (spans off 16 bytes, odd w·c) and from pointers off 16
    bytes, which run the kernels' scalar edge path, at 4096 channels (over
    48 KB of shared memory a block in fp32) and at more row pairs than a
-   grid has rows; and at the eval step's shapes, one padded patient bucket
-   of 16 slices a forward. Then each is timed with CUDA events beside its byte
+   grid has rows; at the eval step's shapes, one padded patient bucket
+   of 16 slices a forward; and at the spleen config's 512² shapes (its
+   batches of 4, FGSM's stacked 8, its 16-slice eval bucket). Then each is
+   timed with CUDA events beside its byte
    bound, one PyTorch library call that computes the same function and a
    ``copy_`` that moves as many bytes; a near-empty kernel is timed the
    same way: the launch floor.
@@ -28,16 +30,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    per iteration. One train-mode forward and input gradient on the card
    (TF32 off for this comparison only) is held against the same net in
    float64 on the CPU.
-4. ``bench.py``'s workload in bf16 (K=2, 4+4 images, 256², jsd + FGSM,
-   augmentation): warm-up, then 30 timed iterations → images/s; then 3
-   iterations under ``torch.profiler``, whose table of device and host
-   time by op goes to ``chiprun_out/profile_bf16.txt``.
+4. The port's bench (``dct_tpu_torch.bench.run``, ``bench.py``'s
+   workload in bf16: K=2, 4+4 images, 256², jsd + FGSM, augmentation, a
+   uint8 set of 1674 slices): a warm-up call, then 5 calls of 30
+   iterations, each timed alone, with 12 launches of each kernel an
+   iteration; its JSON line (``bench.py``'s keys, the median images/s and
+   its spread, ``mfu_bf16_pct``). Then 3 iterations under
+   ``torch.profiler``, whose table of device and host time by op goes to
+   ``chiprun_out/profile_bf16.txt``.
 
 5. The co-training CLI at full width: ``dct_tpu_torch.train_cotraining``
    on ``configs/acdc_cotraining.yaml`` as it ships (fp32, two full ENets,
    K=2, B=Bu=4, 256²) with jsd and FGSM on, over a synthetic ACDC-style PNG
-   tree written under ``build/`` from a seed (100 train patients × 16
-   slices, 20 val patients of 8–16 slices), 2 epochs of 20 iterations, then
+   tree written under ``build/`` from a seed (100 train patients × 8
+   slices, 10 val patients of 8–15 slices), 2 epochs of 20 iterations, then
    a resume from its checkpoints to epoch 3. Losses must be finite, the CSV
    must carry dct_tpu's columns (the header of
    ``results/ACDC_cotrain_r3/metrics.csv``) for epochs 0–2, every val dice
@@ -53,9 +59,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. The three baseline CLIs at full width, each on its config as it ships
    (fp32, PyTorch's precision defaults, full ENet, 4 classes, B = 4 and
    Bu = 4, 256²): ``dct_tpu_torch.train_sup`` on a tree of 10 train
-   patients × 16 slices (its epoch is a whole pass of the train folder,
-   40 iterations), ``train_vat`` and ``train_mean_teacher`` on phase 5's
-   tree (the ACDC split's 20 labeled patients: 80 iterations an epoch).
+   patients × 8 slices (its epoch is a whole pass of the train folder,
+   20 iterations), ``train_vat`` and ``train_mean_teacher`` on phase 5's
+   tree (the ACDC split's 20 labeled patients: 40 iterations an epoch).
    Each runs 1 epoch, then resumes from its ``last.ckpt`` to a second.
    Checks per CLI: finite losses, dct_tpu's CSV header (the committed
    ``results/ACDC_vat`` and ``results/ACDC_meanteacher`` metrics for VAT
@@ -72,6 +78,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``results/`` run one eval-mode forward on the card over a padded
    16-slice bucket against float64 on the CPU, as in phase 5.
 
+7. The ensemble evaluation: ``python -m dct_tpu_torch.summary`` (run in
+   this process), soft and then hard vote, on phase 5's run (K = 2, 256²,
+   10 val patients). Checks: the files' headers equal
+   ``results/ACDC_cotrain_r3``'s; each model's 3D dice mean equals the
+   CLI's ``val_batch_dice`` at its best checkpoint's epoch; each eval
+   forward launches ``pool_mask_fwd`` and ``unpool_fwd`` twice and no
+   backward kernel runs (P·K·2 of each). Then the committed
+   ``results/ACDC_cotrain_r3`` weights' class maps and soft votes over one
+   padded 16-slice bucket on the card against float64 on the CPU, pool-mask
+   flips at near-ties counted.
+
+8. ``configs/spleen_cotraining.yaml`` through the co-training CLI at 512²
+   (fp32 as shipped, K = 2, B = Bu = 4) on a synthetic ``Patient_PP`` tree
+   written under ``build/`` (100 train patients × 2 slices, 3 val patients
+   of 9–16 slices), one epoch of 10 iterations: launches 12 an iteration
+   and 2 an eval forward, dct_tpu's CSV columns (the header of
+   ``results/spleen512_r3/jsd_adv/metrics.csv``), finite values; then
+   the summary with ``--axises 1`` on its run, headers equal the committed
+   spleen run's; then ``results/spleen512_r3/jsd_adv/best_0.ckpt`` over a
+   padded 16-slice bucket at 512² on the card against float64.
+
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
 no CUDA device is present or the ``dct_tpu_torch`` package is not beside it.
@@ -81,7 +108,6 @@ from __future__ import annotations
 import contextlib
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -103,6 +129,12 @@ EVAL_UNPOOL_SHAPES = [(EVAL_L,) + shape[1:] for shape, _ in UNPOOL_SHAPES]
 # the baseline trainers' forwards: 4 images (B = Bu = 4, one batch a forward)
 B4_POOL_SHAPES = [(4,) + shape[1:] for shape, _ in POOL_SHAPES]
 B4_UNPOOL_SHAPES = [(4,) + shape[1:] for shape, _ in UNPOOL_SHAPES]
+# the spleen config at 512²: its step's batches of 4 (8 at FGSM's stacked
+# input) and its eval bucket of 16 slices; each spatial size twice 256²'s
+SPLEEN_POOL_SHAPES = [(n, 2 * h, 2 * w, c) for n in (4, 8, EVAL_L)
+                      for (_, h, w, c), _ in POOL_SHAPES]
+SPLEEN_UNPOOL_SHAPES = [(n, 2 * h, 2 * w, c) for n in (4, 8, EVAL_L)
+                        for (_, h, w, c), _ in UNPOOL_SHAPES]
 # full-resolution shapes (the pool's input, the unpool's mask and output)
 # whose spans are not whole 16-byte vectors (pooled w·c odd in the fourth;
 # the fifth runs channel pairs with a head and a tail); one pooled column of
@@ -118,13 +150,6 @@ REPLACES = {
 }
 SOURCE = "dct_tpu_torch/csrc/pool_mask.cu"
 OUT_DIR = Path("chiprun_out")
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def same(a, b) -> bool:
@@ -259,9 +284,9 @@ def check_kernels(torch, pk, plain):
         for check in (check_pool_exact, check_unpool_exact):
             check(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype, errs,
                   offset=1)
-        for shape in EVAL_POOL_SHAPES + B4_POOL_SHAPES:
+        for shape in EVAL_POOL_SHAPES + B4_POOL_SHAPES + SPLEEN_POOL_SHAPES:
             check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
-        for n, h, w, c in EVAL_UNPOOL_SHAPES + B4_UNPOOL_SHAPES:
+        for n, h, w, c in EVAL_UNPOOL_SHAPES + B4_UNPOOL_SHAPES + SPLEEN_UNPOOL_SHAPES:
             check_unpool_exact(torch, pk, plain, ints, (n, 2 * h, 2 * w, c), dtype, errs)
         for shape, where in POOL_SHAPES:
             n, hh, ww, c = shape
@@ -460,6 +485,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from dct_tpu_torch import bench
+    from dct_tpu_torch.bench import card_line
     from dct_tpu_torch.losses import get_loss_fn
     from dct_tpu_torch.models import Segmentator
     from dct_tpu_torch.models.enet import Enet
@@ -469,6 +496,10 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"{phase} done at {time.perf_counter() - start:.1f} s", flush=True)
     t0 = time.perf_counter()
     log = pk.build()
     print(f"phase 1: built {SOURCE} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -477,12 +508,14 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     detail, errs = check_kernels(torch, pk, plain)
+    done("phase 2 checks")
     print("phase 2: 4 kernels bit-equal to their plain versions "
           "(fp32, bf16, ties, NaN window, NaN in y, NaN and inf in g at "
           "masked-out corners; at the main-path shapes, at the eval shapes "
           f"{EVAL_POOL_SHAPES} (pool) and {EVAL_UNPOOL_SHAPES} (unpool), at the "
-          f"baselines' {B4_POOL_SHAPES} and {B4_UNPOOL_SHAPES}, at "
-          f"ragged shapes {RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
+          f"baselines' {B4_POOL_SHAPES} and {B4_UNPOOL_SHAPES}, at the spleen "
+          f"config's 512² shapes {SPLEEN_POOL_SHAPES} (pool) and {SPLEEN_UNPOOL_SHAPES} "
+          f"(unpool), at ragged shapes {RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
     print(json.dumps({"kernel_detail": detail, "card": card}), flush=True)
     print(json.dumps({"launch_floor_ms": launch_floor_ms(torch), "card": card}),
           flush=True)
@@ -505,25 +538,33 @@ def main() -> int:
           f"{m['sup_loss'][-1].tolist()} jsd {float(m['jsd_loss'][-1]):.5f} "
           f"adv {float(m['adv_loss'][-1]):.5f}; 24 + 24 launches/iteration", flush=True)
 
+    done("phase 3")
+    # phase 4: the port's bench at its full workload (its own models and
+    # data); each timed call runs with the counters set to 0 just before it
+    # and read just after, and the bench fails unless 12 of each launched
+    # an iteration
+    bench_line = bench.run("cuda")
+    print(json.dumps(bench_line), flush=True)
+    launches = bench_line["launches"]
+    for name, count in launches.items():
+        want = 12 * bench_line["iterations"] * bench_line["windows"]
+        if count != want:
+            raise AssertionError(f"bench: {name} launched {count} times, expected {want}")
     segs = build_models(torch, Segmentator, "bfloat16", 10)
     run_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8, rs, 3, gen)
-    T = 30
-    torch.cuda.reset_peak_memory_stats()
-    m, dt, launches = run_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8,
-                               gt_u8, rs, T, gen)
-    ips = 12 * T / dt
-    print(json.dumps({"metric": "cotrain_images_per_sec", "value": ips,
-                      "unit": "images/sec", "dtype": "bfloat16", "iterations": T,
-                      "seconds": dt,
-                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                      "card": card}), flush=True)
-
     profile_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8, rs, gen)
     del segs, img_u8, gt_u8
 
+    done("phase 4")
     cli = run_cli(torch, pk, card)
+    done("phase 5")
     per_iteration = {"cotrain": dict.fromkeys(pk.KERNELS, 12),
                      **run_baselines(torch, pk, card, cli["tree"], cli["val"], cli["buckets"])}
+    done("phase 6")
+    summary_launches = run_summary(torch, pk, card, cli)
+    done("phase 7")
+    spleen = run_spleen(torch, pk, card)
+    done("phase 8")
 
     kernels = []
     for name in pk.KERNELS:
@@ -539,7 +580,9 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in rows),
             "launches_cli": cli["launches"][name],
             "launches_eval": cli["eval_launches"][name],
-            "launches_per_iteration": {k: v[name] for k, v in per_iteration.items()}})
+            "launches_per_iteration": {k: v[name] for k, v in per_iteration.items()},
+            "launches_summary": {k: v[name] for k, v in summary_launches.items()},
+            "launches_spleen_512": {k: v[name] for k, v in spleen.items()}})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -548,31 +591,54 @@ def main() -> int:
     return 0
 
 
-def write_acdc_tree(root: Path, seed: int = 0, n_train: int = 100) -> None:
-    """An ACDC-style PNG tree, root/{train,val}/{img,gt}/patientPPP_01_0_S.png
-    at 256²: concentric rings (gt) and a noisy rendering of them (img), so a
-    segmenter can learn the mapping. ``n_train`` train patients × 16 slices;
-    20 val patients of 8–16 slices, unequal so that the eval buckets pad."""
+def write_ring_tree(root: Path, layout, size: int, n_classes: int, rs) -> None:
+    """root/<mode>/{img,gt}/<stem>.png for each (mode, stems) of ``layout``:
+    concentric rings (gt) at a centre drawn from ``rs`` and a noisy rendering
+    of them (img), so a segmenter can learn the mapping."""
     from PIL import Image
-    rs = np.random.RandomState(seed)
-    size, n_classes = 256, 4
     yy, xx = np.mgrid[0:size, 0:size]
-    for mode, counts in (("train", [16] * n_train),
-                         ("val", rs.randint(8, 17, size=20).tolist())):
+    shift = size * 3 // 32
+    for mode, stems in layout:
         for sub in ("img", "gt"):
             (root / mode / sub).mkdir(parents=True, exist_ok=True)
-        for p, n_slices in enumerate(counts, start=1):
-            for s in range(n_slices):
-                cy, cx = size / 2 + rs.randint(-24, 25), size / 2 + rs.randint(-24, 25)
-                r = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
-                gt = np.zeros((size, size), np.uint8)
-                for c in range(1, n_classes):
-                    gt[r < size * (0.4 - 0.1 * (c - 1))] = c
-                img = (gt.astype(np.float32) / (n_classes - 1) * 180
-                       + rs.randn(size, size) * 12 + 40).clip(0, 255).astype(np.uint8)
-                stem = f"patient{p:03d}_01_0_{s}"
-                Image.fromarray(img).save(root / mode / "img" / f"{stem}.png")
-                Image.fromarray(gt).save(root / mode / "gt" / f"{stem}.png")
+        for stem in stems:
+            cy = size / 2 + rs.randint(-shift, shift + 1)
+            cx = size / 2 + rs.randint(-shift, shift + 1)
+            r = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+            gt = np.zeros((size, size), np.uint8)
+            for c in range(1, n_classes):
+                gt[r < size * (0.4 - 0.1 * (c - 1))] = c
+            img = (gt.astype(np.float32) / (n_classes - 1) * 180
+                   + rs.randn(size, size) * 12 + 40).clip(0, 255).astype(np.uint8)
+            Image.fromarray(img).save(root / mode / "img" / f"{stem}.png")
+            Image.fromarray(gt).save(root / mode / "gt" / f"{stem}.png")
+
+
+def write_acdc_tree(root: Path, seed: int = 0, n_train: int = 100) -> None:
+    """An ACDC-style tree at 256², 4 classes, stems patientPPP_01_0_S:
+    ``n_train`` train patients × 8 slices; 10 val patients of 8–16 slices,
+    unequal so that the eval buckets pad (cut from ACDC's ~10 slices a
+    patient and 20 val patients to keep the script's run short)."""
+    rs = np.random.RandomState(seed)
+    val_counts = rs.randint(8, 17, size=10).tolist()
+
+    def stems(counts):
+        return [f"patient{p:03d}_01_0_{s}" for p, n in enumerate(counts, start=1)
+                for s in range(n)]
+    write_ring_tree(root, [("train", stems([8] * n_train)), ("val", stems(val_counts))],
+                    256, 4, rs)
+
+
+def write_spleen_tree(root: Path, seed: int = 2) -> None:
+    """A spleen-style tree at 512², 2 classes, the slicer's stems
+    Patient_PP_00_0_S: patients 1–100 of 2 train slices each (the split
+    takes 1–20 as labeled, 21–100 as unlabeled); val patients 8, 10 and 16
+    of 12, 16 and 9 slices (one eval bucket of 16)."""
+    def stems(counts):
+        return [f"Patient_{p:02d}_00_0_{s}" for p, n in counts for s in range(n)]
+    write_ring_tree(root, [("train", stems([(p, 2) for p in range(1, 101)])),
+                           ("val", stems([(8, 12), (10, 16), (16, 9)]))],
+                    512, 2, np.random.RandomState(seed))
 
 
 def run_cli(torch, pk, card: str) -> dict:
@@ -705,7 +771,35 @@ def run_cli(torch, pk, card: str) -> dict:
             "val": val, "buckets": buckets}
 
 
-def check_trained_weights(torch, val, buckets, path: str, entry: str = "segmentator") -> dict:
+def count_flips(seen_card, seen_ref) -> tuple:
+    """(mask entries that differ, those of them not at a near-tie) between
+    the card's and the float64 reference's pool calls, each recorded as
+    (float64 input or None, mask as bool). A flip is at a near-tie when the
+    float64 window's maximum exceeds the card's chosen corner by at most
+    1e-5 of the layer's largest magnitude: fp32 rounding of the
+    activations."""
+    flips, far = 0, 0
+    for (_, m_card), (x, m_ref) in zip(seen_card, seen_ref):
+        n, hh, ww, c = x.shape
+        win = x.reshape(n, hh // 2, 2, ww // 2, 2, c)
+        gap = (win.amax(dim=(2, 4), keepdim=True) - win).reshape(x.shape)
+        flips += int((m_card != m_ref).sum())
+        far += int((gap[m_card & ~m_ref] > 1e-5 * x.abs().max()).sum())
+    return flips, far
+
+
+def recording_pool(pool, seen, side):
+    """A stand-in for ENet's pool that records (its float64 input on the
+    CPU side, its mask as bool) in ``seen[side]``."""
+    def run(t):
+        res = pool(t)
+        seen[side].append((t.detach().cpu() if side == "cpu" else None, (res[1] != 0).cpu()))
+        return res
+    return run
+
+
+def check_trained_weights(torch, val, buckets, path: str, entry: str = "segmentator",
+                          near_ties: bool = False) -> dict:
     """The committed trained weights of ``path``'s ``entry``: one eval-mode
     forward on the card (fp32, TF32 off, CUDA kernels), through the
     Segmentator the eval step runs, of the first val patient's bucket that
@@ -717,7 +811,10 @@ def check_trained_weights(torch, val, buckets, path: str, entry: str = "segmenta
     and float64 may pick different corners: such mask flips are counted,
     and then only the logits' 99.9th percentile is held to 1e-3 of scale,
     the flips to 1e-5 of the mask entries and the argmax to all but 1e-4
-    of the pixels."""
+    of the pixels. With ``near_ties``, more flips pass when every one lies
+    in a near-tie window (``count_flips``): dead channels, whose weights
+    weight decay left at 1e-34 and below, tie in every window in fp32 but
+    differ at that scale in float64."""
     import dct_tpu_torch.models.enet as enet_mod
     from dct_tpu_torch.checkpoint import load_checkpoint
     from dct_tpu_torch.models import Segmentator
@@ -730,35 +827,28 @@ def check_trained_weights(torch, val, buckets, path: str, entry: str = "segmenta
     idx = buckets.indices[padded[0]]
     x = torch.from_numpy(val.data["img"][idx]).float()[..., None] / 255.0
     seg = Segmentator.from_state_dict(seg_sd, device="cuda")
-    net = Enet(4)
+    net = Enet(int(seg_sd["arch_dict"]["num_classes"]))
     net.load_state_dict(params_from_jax(seg_sd["net_state_dict"], seg_sd["batch_stats"]))
     net = net.to("cpu", torch.float64, memory_format=torch.channels_last).eval()
-    pool, masks = enet_mod.max_pool_2x2_with_mask_kernel, {"cuda": [], "cpu": []}
-
-    def recording(side):
-        def run(t):
-            out = pool(t)
-            masks[side].append(out[1].cpu().double())
-            return out
-        return run
+    pool, seen = enet_mod.max_pool_2x2_with_mask_kernel, {"cuda": [], "cpu": []}
     try:
         with tf32_off(torch), torch.inference_mode():
-            enet_mod.max_pool_2x2_with_mask_kernel = recording("cuda")
+            enet_mod.max_pool_2x2_with_mask_kernel = recording_pool(pool, seen, "cuda")
             card = seg.predict(x.cuda()).cpu().double()
-            enet_mod.max_pool_2x2_with_mask_kernel = recording("cpu")
+            enet_mod.max_pool_2x2_with_mask_kernel = recording_pool(pool, seen, "cpu")
             ref = net(x.double())
     finally:
         enet_mod.max_pool_2x2_with_mask_kernel = pool
     scale = ref.abs().max()
     err = (card - ref).abs()
-    flips = sum(int((a != b).sum()) for a, b in zip(masks["cuda"], masks["cpu"]))
-    n_mask = sum(m.numel() for m in masks["cpu"])
+    flips, far = count_flips(seen["cuda"], seen["cpu"])
+    n_mask = sum(m.numel() for _, m in seen["cpu"])
     out = {"logits": float(err.max() / scale),
            "logits_p999": float(torch.quantile(err.flatten().float(), 0.999) / scale),
-           "mask_flips": flips, "mask_entries": n_mask,
+           "mask_flips": flips, "flips_not_near_tie": far, "mask_entries": n_mask,
            "argmax_disagree": float((card.argmax(-1) != ref.argmax(-1)).double().mean())}
-    near_tie_ok = (out["logits_p999"] < 1e-3 and flips <= 1e-5 * n_mask
-                   and out["argmax_disagree"] <= 1e-4)
+    near_tie_ok = (out["logits_p999"] < 1e-3 and out["argmax_disagree"] <= 1e-4
+                   and (flips <= 1e-5 * n_mask or (near_ties and far == 0)))
     if not (out["logits"] < 1e-3 or (flips and near_tie_ok)):
         raise AssertionError(f"trained {path} ({entry}) eval logits on the card differ "
                              f"from the float64 CPU reference: {out}")
@@ -1044,6 +1134,196 @@ def check_vat_perturbation(torch, val):
         raise AssertionError(f"VAT r_adv norms {out['cli']['norms']} on the card, "
                              f"expected ε = {eps}")
     return out
+
+
+SUMMARY_FILES = ("summary.csv", "bsummary.csv", "div.csv", "summary_std.csv",
+                 "bsummary_std.csv", "log_2Ddice_ensemble.csv", "log_3Ddice_model_1.csv")
+
+
+def check_summary_headers(run: Path, committed: str) -> None:
+    """The summary files' headers, and the std tables' row labels, equal
+    the committed run's."""
+    import csv
+    for name in SUMMARY_FILES:
+        with open(run / name, newline="") as f:
+            got = list(csv.reader(f))
+        with open(Path(committed) / name, newline="") as f:
+            ref = list(csv.reader(f))
+        if got[0] != ref[0] or (name.endswith("std.csv")
+                                and [r[0] for r in got] != [r[0] for r in ref]):
+            raise AssertionError(f"{run / name}: header {got[0]}, {committed}'s {ref[0]}")
+
+
+def summarise(torch, pk, run: Path, n_forwards: int, *args) -> tuple:
+    """``python -m dct_tpu_torch.summary`` on ``run``, in this process, with
+    the counters set to 0 just before it and read just after; fails unless
+    each of the ``n_forwards`` eval forwards launched pool_mask_fwd and
+    unpool_fwd twice and no backward kernel ran. Returns (its tables,
+    seconds, launches)."""
+    from dct_tpu_torch.summary import main as summary_main
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = summary_main(["--input_dir", str(run), *args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    want = dict(zip(FWD_BWD, (2 * n_forwards, 2 * n_forwards, 0, 0)))
+    if launches != want:
+        raise AssertionError(f"summary {args} on {run}: {n_forwards} eval forwards "
+                             f"launched {launches}, expected {want}")
+    return out, wall, launches
+
+
+def run_summary(torch, pk, card: str, cli: dict) -> dict:
+    """Phase 7: the ensemble evaluation, soft and hard, on phase 5's run
+    (K = 2, 256², the card), then the trained results/ACDC_cotrain_r3 run's
+    class maps and votes on the card against float64. Returns the launches
+    of each summary run."""
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    run, P, K = Path("build/cli_run"), len(cli["buckets"]), 2
+    rows = _csv_rows(run)
+    launches = {}
+    for ensemble in ("soft", "hard"):
+        out, wall, launches[ensemble] = summarise(torch, pk, run, P * K,
+                                                  "--ensemble_method", ensemble)
+        check_summary_headers(run, "results/ACDC_cotrain_r3")
+        mean = out["bsummary"]["mean"]
+        for s in range(K):
+            epoch = int(load_checkpoint(run / f"best_{s}.ckpt")["best_epoch"])
+            for i in (1, 2, 3):
+                csv_v = float(rows[epoch][f"val_batch_dice_{s}_{i}"])
+                if abs(mean[f"S{s}_DSC{i}"] - csv_v) > 5.1e-5:
+                    raise AssertionError(f"summary S{s}_DSC{i} {mean[f'S{s}_DSC{i}']:.6f}, "
+                                         f"the CLI's best_{s} epoch {epoch}: {csv_v}")
+        print(f"phase 7: summary --ensemble_method {ensemble} on {run}: {P} patients × "
+              f"{K} models in {wall:.2f} s, launches {launches[ensemble]}; headers of "
+              f"results/ACDC_cotrain_r3; each model's 3D dice mean = its best epoch's CSV "
+              f"val_batch_dice; kappa {out['div']}; ens 3D dice "
+              f"{[round(float(mean[f'ens_DSC{i}']), 4) for i in (1, 2, 3)]}", flush=True)
+        print(json.dumps({"summary": ensemble, "seconds": wall, "patients": P, "models": K,
+                          "launches": launches[ensemble], "card": card}), flush=True)
+    maps = check_summary_maps(torch, cli["val"], cli["buckets"], "results/ACDC_cotrain_r3")
+    print(f"phase 7: trained results/ACDC_cotrain_r3 (K = 2, soft vote), a padded "
+          f"{EVAL_L}-slice bucket, class maps and votes on the card vs float64 on the "
+          f"CPU: {maps}", flush=True)
+    return launches
+
+
+def check_summary_maps(torch, val, buckets, run_dir: str) -> dict:
+    """The summary step's class maps and soft votes of a committed run's
+    best_*.ckpt on the first padded val bucket, on the card (fp32, TF32
+    off, CUDA kernels) and in float64 on the CPU.
+
+    Where a pool window holds a near-tie, fp32 and float64 may pick
+    different corners, and the unpool then moves the logits downstream (a
+    dead channel whose windows all tie does so everywhere). So each pool
+    mask entry that differs is counted, and it must lie at a near-tie
+    (``count_flips``). A
+    model with no mask flip must give the float64 class map on all but
+    1e-4 of the bucket's valid pixels, and so must the vote where no model
+    flipped; pixels that differ beside counted near-tie flips are counted
+    and reported."""
+    import dct_tpu_torch.models.enet as enet_mod
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train.steps import make_summary_step
+    sds = [load_checkpoint(c)["segmentator"] for c in sorted(Path(run_dir).glob("best_*.ckpt"))]
+    C, K = int(sds[0]["arch_dict"]["num_classes"]), len(sds)
+    p = [i for i in range(len(buckets)) if not buckets.mask[i].all()][0]
+    idx, mask = buckets.indices[p:p + 1], buckets.mask[p:p + 1]
+    img_u8, gt_u8 = torch.from_numpy(val.data["img"]), torch.from_numpy(val.data["gt"])
+    pool, seen, out = enet_mod.max_pool_2x2_with_mask_kernel, {"cuda": [], "cpu": []}, {}
+    try:
+        with tf32_off(torch):
+            for side in ("cuda", "cpu"):
+                segs = [Segmentator.from_state_dict(sd, device=side) for sd in sds]
+                if side == "cpu":
+                    for s in segs:
+                        s.compute_dtype = torch.float64
+                enet_mod.max_pool_2x2_with_mask_kernel = recording_pool(pool, seen, side)
+                res = make_summary_step(segs, C, "soft")(img_u8.to(side), gt_u8.to(side),
+                                                         idx, mask)
+                out[side] = (res["pred"][0].cpu(), res["ens"][0].cpu())
+    finally:
+        enet_mod.max_pool_2x2_with_mask_kernel = pool
+    # each model's forward makes two pool calls, model 0's first
+    per_model = [count_flips(seen["cuda"][2 * k:2 * k + 2], seen["cpu"][2 * k:2 * k + 2])
+                 for k in range(K)]
+    flips, far = [f for f, _ in per_model], sum(n for _, n in per_model)
+    valid = torch.from_numpy(mask[0])
+    n_pix = int(valid.sum()) * img_u8.shape[1] * img_u8.shape[2]
+    differ = [int((out["cuda"][0][k][valid] != out["cpu"][0][k][valid]).sum())
+              for k in range(K)]
+    vote_differ = int((out["cuda"][1][valid] != out["cpu"][1][valid]).sum())
+    res = {"pixels": n_pix, "map_differ": differ, "vote_differ": vote_differ,
+           "mask_flips": flips, "flips_not_near_tie": far,
+           "mask_entries_per_model": sum(m.numel() for _, m in seen["cpu"][:2])}
+    bad = far or any(d > 1e-4 * n_pix for d, f in zip(differ, flips) if not f) or (
+        not any(flips) and vote_differ > 1e-4 * n_pix)
+    if bad:
+        raise AssertionError(f"{run_dir}: class maps or votes on the card differ from "
+                             f"float64 beyond counted near-ties: {res}")
+    return res
+
+
+def run_spleen(torch, pk, card: str) -> dict:
+    """Phase 8: configs/spleen_cotraining.yaml through the co-training CLI
+    at 512² (fp32 as shipped, K = 2, B = Bu = 4) on a synthetic tree, one
+    epoch of 10 iterations; then the summary with --axises 1 on its run;
+    then the trained results/spleen512_r3/jsd_adv/best_0.ckpt on the card
+    against float64. Returns the launches of the CLI run and the summary."""
+    import csv
+    import shutil
+    from dct_tpu_torch.train_cotraining import main as cli_main
+    tree, run, T = Path("build/spleen_synthetic"), Path("build/spleen_run"), 10
+    committed = "results/spleen512_r3/jsd_adv"
+    t0 = time.perf_counter()
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.rmtree(run, ignore_errors=True)
+    write_spleen_tree(tree)
+    print(f"phase 8: wrote the 512² spleen tree in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = cli_main(["--config", "configs/spleen_cotraining.yaml", f"Dataset.root_dir={tree}",
+                        f"Trainer.save_dir={run}", "Trainer.max_epoch=1",
+                        f"Trainer.iters_per_epoch={T}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cli_launches = dict(pk.LAUNCHES)
+    P, K = len(trainer.val_buckets), trainer.K
+    want = dict(zip(FWD_BWD, (12 * T + 2 * P * K, 12 * T + 2 * P * K, 12 * T, 12 * T)))
+    if cli_launches != want or trainer.val_buckets.bucket_len != EVAL_L:
+        raise AssertionError(f"spleen CLI: {T} iterations and {P * K} eval forwards of "
+                             f"{trainer.val_buckets.bucket_len} slices launched "
+                             f"{cli_launches}, expected {want} at {EVAL_L}")
+    rows = _csv_rows(run)
+    with open(Path(committed) / "metrics.csv", newline="") as f:
+        ref_header = next(csv.reader(f))
+    if list(rows[0]) != ref_header or len(rows) != 1:
+        raise AssertionError(f"spleen metrics.csv: header {list(rows[0])}, {len(rows)} rows; "
+                             f"{committed}'s header {ref_header}")
+    for k, v in rows[0].items():
+        if not math.isfinite(float(v)) or ("dice" in k and not 0.0 <= float(v) <= 1.0):
+            raise AssertionError(f"spleen epoch 0: {k} = {v}")
+    print(json.dumps({"cli": "cotraining_spleen_512", "cli_epoch": 0,
+                      "t_train": float(rows[0]["t_train"]), "t_eval": float(rows[0]["t_eval"]),
+                      "t_call": wall, "iterations": T,
+                      "images_per_sec": float(rows[0]["images_per_sec"]),
+                      "tf32_convs": torch.backends.cudnn.allow_tf32, "card": card}), flush=True)
+    out, s_wall, s_launches = summarise(torch, pk, run, P * K, "--axises", "1")
+    check_summary_headers(run, committed)
+    print(f"phase 8: spleen CLI at 512², 1 epoch of {T} iterations in {wall:.1f} s "
+          f"(launches {cli_launches}); summary --axises 1 in {s_wall:.2f} s (launches "
+          f"{s_launches}), headers of {committed}, kappa {out['div']}", flush=True)
+    errs = check_trained_weights(torch, trainer.val_set, trainer.val_buckets,
+                                 f"{committed}/best_0.ckpt", near_ties=True)
+    print(f"phase 8: trained {committed}/best_0.ckpt, eval forward of a padded "
+          f"{EVAL_L}-slice bucket at 512² on the card vs float64 CPU (share of scale): "
+          f"{errs}", flush=True)
+    return {"cli": cli_launches, "summary": s_launches}
 
 
 def profile_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, gen):

@@ -1,7 +1,8 @@
 """The supervised epoch (``dct_tpu/train/steps.py:make_supervised_epoch``),
-the K-model co-training epoch (``make_cotrain_epoch``, unfused forward) and
+the K-model co-training epoch (``make_cotrain_epoch``, unfused forward),
 the per-patient eval steps (``make_eval_patient_step``,
-``make_eval_all_step``, ``make_eval_all_models_step``).
+``make_eval_all_step``, ``make_eval_all_models_step``) and the ensemble
+evaluation (``make_summary_step``).
 
 A supervised iteration gathers its batch, warps it (nearest, image and
 labels together) when augmenting, runs one train-mode forward, and steps
@@ -195,18 +196,25 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
     return epoch
 
 
+def _map_dice(pred: torch.Tensor, gt_oh: torch.Tensor, m4: torch.Tensor, C: int):
+    """Hard dice of class maps pred (..., L,H,W) against the masked one-hot
+    gt (L,H,W,C): 2D (..., L,C) and 3D (..., C) over the valid slices."""
+    pred_oh = class2one_hot(pred, C) * m4
+    inter2 = torch.sum(gt_oh * pred_oh, dim=(-3, -2))
+    sums2 = torch.sum(gt_oh, dim=(-3, -2)) + torch.sum(pred_oh, dim=(-3, -2))
+    inter3 = torch.sum(inter2, dim=-2)
+    sums3 = torch.sum(sums2, dim=-2)
+    return (2 * inter2 + 1e-8) / (sums2 + 1e-8), (2 * inter3 + 1e-8) / (sums3 + 1e-8)
+
+
 def _patient_metrics(logits: torch.Tensor, gt: torch.Tensor,
                      gt_oh: torch.Tensor, maskf: torch.Tensor
                      ) -> Dict[str, torch.Tensor]:
     """dice2d (L,C), dice3d (C,) over the valid slices, masked CE."""
-    m4 = maskf[:, None, None, None]
     loss = _masked_ce(logits, gt, maskf.to(logits.dtype))
-    pred_oh = probs2one_hot(torch.softmax(logits, dim=-1)) * m4
-    dice2d = dice_coef(gt_oh, pred_oh)
-    inter = torch.sum(gt_oh * pred_oh, dim=(0, 1, 2))
-    sums = torch.sum(gt_oh, dim=(0, 1, 2)) + torch.sum(pred_oh, dim=(0, 1, 2))
-    return {"dice2d": dice2d, "dice3d": (2 * inter + 1e-8) / (sums + 1e-8),
-            "loss": loss}
+    pred = torch.argmax(torch.softmax(logits, dim=-1), dim=-1)
+    dice2d, dice3d = _map_dice(pred, gt_oh, maskf[:, None, None, None], logits.shape[-1])
+    return {"dice2d": dice2d, "dice3d": dice3d, "loss": loss}
 
 
 def _bucket(img_u8, gt_u8, idx, mask, C):
@@ -261,6 +269,43 @@ def make_eval_all_models_step(segs: Sequence[Segmentator], C: int) -> Callable:
                          for s in segs]
             per_patient.append({k: torch.stack([m[k] for m in per_model])
                                 for k in per_model[0]})
+        return {k: torch.stack([p[k] for p in per_patient]) for k in per_patient[0]}
+
+    return step
+
+
+def make_summary_step(segs: Sequence[Segmentator], C: int,
+                      ensemble: str = "soft") -> Callable:
+    """The ensemble evaluation of ``summary.py``: ``step(img_u8, gt_u8,
+    indices (P,L), masks (P,L))`` → {pred (P,K,L,H,W) uint8, ens (P,L,H,W)
+    uint8, dice2d (P,K,L,C), dice3d (P,K,C), ens_dice2d (P,L,C), ens_dice3d
+    (P,C)} on the device. Each patient's bucket runs one eval forward per
+    model; the model maps are the argmax of the softmax. The soft vote is
+    the argmax of the mean probabilities, the hard vote the argmax of the
+    per-class vote counts, a tie going to the smallest class id as in
+    dct_tpu. The probabilities never leave the device."""
+    if ensemble not in ("soft", "hard"):
+        raise ValueError(f"ensemble must be 'soft' or 'hard', got {ensemble!r}")
+
+    @torch.inference_mode()
+    def step(img_u8, gt_u8, indices, masks) -> Dict[str, torch.Tensor]:
+        per_patient = []
+        for idx, mask in zip(np.asarray(indices), np.asarray(masks)):
+            img, _, gt_oh, maskf = _bucket(img_u8, gt_u8, idx, mask, C)
+            m4 = maskf[:, None, None, None]
+            probs = torch.stack([torch.softmax(s.apply_eval(img), dim=-1) for s in segs])
+            model_pred = torch.argmax(probs, dim=-1)                  # (K,L,H,W)
+            if ensemble == "soft":
+                ens_pred = torch.argmax(torch.mean(probs, dim=0), dim=-1)
+            else:
+                votes = torch.sum(class2one_hot(model_pred, C, torch.int32), dim=0)
+                ens_pred = torch.argmax(votes, dim=-1)
+            d2m, d3m = _map_dice(model_pred, gt_oh, m4, C)
+            d2e, d3e = _map_dice(ens_pred, gt_oh, m4, C)
+            per_patient.append({"pred": model_pred.to(torch.uint8),
+                                "ens": ens_pred.to(torch.uint8),
+                                "dice2d": d2m, "dice3d": d3m,
+                                "ens_dice2d": d2e, "ens_dice3d": d3e})
         return {k: torch.stack([p[k] for p in per_patient]) for k in per_patient[0]}
 
     return step

@@ -7,6 +7,8 @@ the metrics CSV the trainers write and resume.
   standard library's ``csv`` (no pandas), in pandas' ``to_csv(
   float_format="%.4f")`` layout: the ``epoch`` index first, floats with four
   decimals, NaN as an empty field.
+* ``write_rows`` with ``format_4f`` or ``format_float32``: any other table
+  in pandas' ``to_csv`` layout, with or without ``float_format="%.4f"``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import json
 import math
 from pathlib import Path
 from typing import Dict, List, Sequence, Union
+
+import numpy as np
 
 
 class ScalarWriter:
@@ -47,20 +51,34 @@ class ScalarWriter:
             self._tb.close()
 
 
-def _field(v: float) -> str:
+def format_4f(v: float) -> str:
+    """A float as pandas writes it with ``float_format="%.4f"``."""
     v = float(v)
     return "" if math.isnan(v) else "%.4f" % v
+
+
+def format_float32(v: float) -> str:
+    """A float32 value as pandas writes it with no float format: the
+    shortest repr of the float32 (``5.6179776e-11``, ``1.0``), NaN empty."""
+    v = np.float32(v)
+    return "" if np.isnan(v) else str(v)
+
+
+def write_rows(path: Union[str, Path], header: Sequence[str],
+               rows: Sequence[Sequence[str]]) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)
 
 
 def write_metrics_csv(path: Union[str, Path], records: List[dict],
                       columns: Sequence[str]) -> None:
     """``records`` (dicts with an ``epoch`` key and float values) → a CSV
     of ``epoch`` and ``columns``."""
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(["epoch", *columns])
-        for r in records:
-            w.writerow([int(r["epoch"])] + [_field(r.get(c, math.nan)) for c in columns])
+    write_rows(path, ["epoch", *columns],
+               [[str(int(r["epoch"]))] + [format_4f(r.get(c, math.nan)) for c in columns]
+                for r in records])
 
 
 def resume_records(csv_path: Union[str, Path], start_epoch: int) -> list:

@@ -1,6 +1,7 @@
 """Rules of the dct_tpu_torch package: it never imports JAX or dct_tpu, it
-imports where JAX cannot be imported, its CLIs need no pandas, and its
-entry points refuse to run on the CPU unless asked to."""
+imports where JAX cannot be imported, its CLIs (the trainers, the summary
+and the report) need no pandas, and its entry points (the trainers, the
+summary and the bench) refuse to run on the CPU unless asked to."""
 import re
 import subprocess
 import sys
@@ -22,6 +23,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|dct_tpu)(\.|\s|$)",
 
 def test_port_has_files():
     assert len(PORT_FILES) > 10, PORT_FILES
+    for name in ("summary", "bench", "metrics", "postprocessing/report"):
+        assert f"dct_tpu_torch/{name}.py" in PORT_FILES, name
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -193,3 +196,64 @@ def test_cli_runs_without_pandas(tmp_path, cli):
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert line in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["summary", "bench"])
+def test_summary_and_bench_need_cuda_or_explicit_cpu(no_cuda, tmp_path, entry):
+    """``python -m dct_tpu_torch.summary`` and ``.bench`` raise without a card
+    unless told to run on the CPU, before they read or write anything."""
+    import importlib
+    main = importlib.import_module(f"dct_tpu_torch.{entry}").main
+    args = ["--input_dir", str(tmp_path)] if entry == "summary" else []
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(args + device)
+    assert not any(tmp_path.iterdir())
+
+
+def test_summary_and_report_run_without_pandas(tmp_path):
+    """In a process where importing pandas (and JAX, flax, optax, dct_tpu)
+    raises: ``python -m dct_tpu_torch.summary --device cpu`` on a copy of
+    results/ACDC_cotrain_r3's checkpoints and a 16² val tree, then
+    ``python -m dct_tpu_torch.postprocessing.report`` on its folder."""
+    run = tmp_path / "runs" / "r3"
+    run.mkdir(parents=True)
+    for name in ("best_0.ckpt", "best_1.ckpt", "config.yml"):
+        (run / name).write_bytes((ROOT / "results" / "ACDC_cotrain_r3" / name).read_bytes())
+    code = (
+        "import runpy, sys\n"
+        "for name in ('pandas', 'jax', 'flax', 'optax', 'dct_tpu', 'tensorflow'):\n"
+        "    sys.modules[name] = None\n"
+        "from pathlib import Path\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from PIL import Image\n"
+        "torch.set_num_threads(1)\n"
+        "tree, run = Path(sys.argv[1]), Path(sys.argv[2])\n"
+        "rs = np.random.RandomState(0)\n"
+        "for sub in ('img', 'gt'):\n"
+        "    (tree / 'val' / sub).mkdir(parents=True)\n"
+        "for p in (1, 2):\n"
+        "    for s in range(3):\n"
+        "        stem = f'patient{p:03d}_01_0_{s}.png'\n"
+        "        Image.fromarray(rs.randint(0, 256, (16, 16)).astype(np.uint8)).save(tree / 'val' / 'img' / stem)\n"
+        "        Image.fromarray(rs.randint(0, 4, (16, 16)).astype(np.uint8)).save(tree / 'val' / 'gt' / stem)\n"
+        "import yaml\n"
+        "cfg = yaml.safe_load((run / 'config.yml').read_text())\n"
+        "cfg['Dataset']['transform'] = 'segment_transform((16,16))'\n"
+        "(run / 'config.yml').write_text(yaml.safe_dump(cfg))\n"
+        "sys.argv = ['summary', '--device', 'cpu', '--input_dir', str(run), '--dataset_root', str(tree)]\n"
+        "runpy.run_module('dct_tpu_torch.summary', run_name='__main__')\n"
+        "sys.argv = ['report', '--folder', str(run.parent)]\n"
+        "runpy.run_module('dct_tpu_torch.postprocessing.report', run_name='__main__')\n"
+        "assert not any(k.split('.')[0] in ('pandas', 'jax')\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "tree"), str(run)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for name in ("summary.csv", "bsummary.csv", "div.csv", "summary_std.csv",
+                 "bsummary_std.csv", "log_2Ddice_ensemble.csv", "log_3Ddice_model_1.csv"):
+        assert (run / name).is_file(), name
+    assert len(list((run / "iter1000" / "val" / "voting").glob("*.png"))) == 6
+    for name in ("ensemble_results.csv", "mean_score_results.csv"):
+        assert (run.parent / name).read_text().splitlines()[1].startswith("r3,")
