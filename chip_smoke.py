@@ -17,25 +17,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bytes, which run the kernels' scalar edge path, at 4096 channels (over
    48 KB of shared memory a block in fp32) and at more row pairs than a
    grid has rows; at the eval step's shapes, one padded patient bucket
-   of 16 slices a forward; and at the spleen config's 512² shapes (its
-   batches of 4, FGSM's stacked 8, its 16-slice eval bucket). Then each is
-   timed with CUDA events beside its byte
+   of 16 slices a forward; at the spleen config's 512² shapes (its
+   batches of 4, FGSM's stacked 8, its 16-slice eval bucket); and at the
+   Cityscapes configs' shapes (3-channel ENet, 16 channels at the outer
+   bottlenecks: the co-training config's fused 8 images and batches of 4
+   at 256×512, the supervised config's batch of 4 at 512×1024). Then each
+   is timed with CUDA events, at the ACDC main path's and at the Cityscapes
+   co-training config's fused shapes, beside its byte
    bound, one PyTorch library call that computes the same function and a
    ``copy_`` that moves as many bytes; a near-empty kernel is timed the
    same way: the launch floor.
 3. Two full-width ENets (4 classes) take 3 co-training iterations in fp32
-   (jsd, adv, augmentation on; PyTorch's precision defaults, as the CLI
-   runs) on a synthetic 1674×256×256 uint8 dataset; losses must be finite
-   and the kernel counters must show 24 forward and 24 backward launches
-   per iteration. One train-mode forward and input gradient on the card
+   (jsd, adv, augmentation on, the fused two-group forward; PyTorch's
+   precision defaults, as the CLI runs) on a synthetic 1674×256×256 uint8
+   dataset; losses must be finite and the kernel counters must show 8
+   launches of each kernel per iteration. One train-mode forward and input gradient on the card
    (TF32 off for this comparison only) is held against the same net in
    float64 on the CPU.
 4. The port's bench (``dct_tpu_torch.bench.run``, ``bench.py``'s
    workload in bf16: K=2, 4+4 images, 256², jsd + FGSM, augmentation, a
-   uint8 set of 1674 slices): a warm-up call, then 5 calls of 30
-   iterations, each timed alone, with 12 launches of each kernel an
-   iteration; its JSON line (``bench.py``'s keys, the median images/s and
-   its spread, ``mfu_bf16_pct``). Then 3 iterations under
+   uint8 set of 1674 slices, the labeled and unlabeled forwards fused as
+   bench.py runs them): a warm-up call, then 5 calls of 30 iterations,
+   each timed alone, with 8 launches of each kernel an iteration; its JSON
+   line (``bench.py``'s keys, the median images/s and its spread,
+   ``mfu_bf16_pct``); then the same bench on the unfused step (12 launches
+   of each kernel an iteration), its line under ``bench_unfused``, to
+   measure the fused forward's gain in one process. Then 3 iterations under
    ``torch.profiler``, whose table of device and host time by op goes to
    ``chiprun_out/profile_bf16.txt``.
 
@@ -92,12 +99,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. ``configs/spleen_cotraining.yaml`` through the co-training CLI at 512²
    (fp32 as shipped, K = 2, B = Bu = 4) on a synthetic ``Patient_PP`` tree
    written under ``build/`` (100 train patients × 2 slices, 3 val patients
-   of 9–16 slices), one epoch of 10 iterations: launches 12 an iteration
+   of 9–16 slices), one epoch of 10 iterations: launches 8 an iteration
    and 2 an eval forward, dct_tpu's CSV columns (the header of
    ``results/spleen512_r3/jsd_adv/metrics.csv``), finite values; then
    the summary with ``--axises 1`` on its run, headers equal the committed
    spleen run's; then ``results/spleen512_r3/jsd_adv/best_0.ckpt`` over a
    padded 16-slice bucket at 512² on the card against float64.
+
+9. Cityscapes: a synthetic tree at 1024×2048 (4 cities, 80 train and 8
+   val images, raw label ids with void ids) written under ``build/``;
+   ``train_cotraining_city`` on ``configs/cityscapes_cotraining.yaml`` as
+   it ships (256×512, fp32, K = 2, B = Bu = 4, jsd + the FGSM/VAT mix,
+   the 19 class weights) for 2 epochs, then a resume to 3;
+   ``train_sup_city`` on ``configs/cityscapes_supervised.yaml`` (512×1024,
+   batch 4) for 1 epoch, then a resume to 2. Cut: ``Dataset.subsample=1``
+   and the epochs. Checks: dct_tpu's CSV columns for every epoch, finite
+   losses, mIoU in [0, 1], the checkpoints, the resume's start epoch, the
+   epoch-0 prediction dumps of the co-training run, and every kernel's
+   launches against the count the drawn FGSM/VAT flags give
+   (``city_iteration_launches``) plus 2 an eval or prediction forward.
+   Then one co-training iteration at full width at the configs' λ maxima
+   (λ_cot 1.0, λ_adv 0.005), FGSM in one direction and VAT in the other,
+   from the run's last weights, on the card (TF32 off) against float64 on
+   the CPU (``check_city_iteration`` states the tolerances).
 
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
@@ -135,6 +159,18 @@ SPLEEN_POOL_SHAPES = [(n, 2 * h, 2 * w, c) for n in (4, 8, EVAL_L)
                       for (_, h, w, c), _ in POOL_SHAPES]
 SPLEEN_UNPOOL_SHAPES = [(n, 2 * h, 2 * w, c) for n in (4, 8, EVAL_L)
                         for (_, h, w, c), _ in UNPOOL_SHAPES]
+# the Cityscapes configs (3-channel ENet: 16 channels at bottleneck_1_0 and
+# bottleneck_5_0, c0 = 13 + 3, so every span is whole 16-byte vectors):
+# co-training at 256×512, its fused forward over 2B = 8 images (timed), its
+# FGSM/VAT passes and val batches of 4; supervised at 512×1024, batch 4
+CITY_POOL_SHAPES = [((8, 128, 256, 16), "city_bottleneck_1_0"),
+                    ((8, 64, 128, 64), "city_bottleneck_2_0")]
+CITY_UNPOOL_SHAPES = [((8, 32, 64, 64), "city_bottleneck_4_0"),
+                      ((8, 64, 128, 16), "city_bottleneck_5_0")]
+CITY_CHECK_POOL_SHAPES = [(4, 128, 256, 16), (4, 64, 128, 64),
+                          (4, 256, 512, 16), (4, 128, 256, 64)]
+CITY_CHECK_UNPOOL_SHAPES = [(4, 32, 64, 64), (4, 64, 128, 16),
+                            (4, 64, 128, 64), (4, 128, 256, 16)]
 # full-resolution shapes (the pool's input, the unpool's mask and output)
 # whose spans are not whole 16-byte vectors (pooled w·c odd in the fourth;
 # the fifth runs channel pairs with a head and a tail); one pooled column of
@@ -150,6 +186,16 @@ REPLACES = {
 }
 SOURCE = "dct_tpu_torch/csrc/pool_mask.cu"
 OUT_DIR = Path("chiprun_out")
+
+
+def emit(obj: dict) -> None:
+    """Print one JSON line and append it to ``OUT_DIR/chip_smoke.jsonl``, so
+    every measurement survives where only the tail of the output is kept."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def same(a, b) -> bool:
@@ -284,11 +330,13 @@ def check_kernels(torch, pk, plain):
         for check in (check_pool_exact, check_unpool_exact):
             check(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype, errs,
                   offset=1)
-        for shape in EVAL_POOL_SHAPES + B4_POOL_SHAPES + SPLEEN_POOL_SHAPES:
+        for shape in (EVAL_POOL_SHAPES + B4_POOL_SHAPES + SPLEEN_POOL_SHAPES
+                      + CITY_CHECK_POOL_SHAPES):
             check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
-        for n, h, w, c in EVAL_UNPOOL_SHAPES + B4_UNPOOL_SHAPES + SPLEEN_UNPOOL_SHAPES:
+        for n, h, w, c in (EVAL_UNPOOL_SHAPES + B4_UNPOOL_SHAPES + SPLEEN_UNPOOL_SHAPES
+                           + CITY_CHECK_UNPOOL_SHAPES):
             check_unpool_exact(torch, pk, plain, ints, (n, 2 * h, 2 * w, c), dtype, errs)
-        for shape, where in POOL_SHAPES:
+        for shape, where in POOL_SHAPES + CITY_POOL_SHAPES:
             n, hh, ww, c = shape
             small = (n, hh // 2, ww // 2, c)
             check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
@@ -317,7 +365,7 @@ def check_kernels(torch, pk, plain):
             detail += [timing_row(name, where, shape, dtype, nbytes, ms, plain_ms,
                                   lib_ms, copy) for name, nbytes, ms, plain_ms, lib_ms in rows]
 
-        for shape, where in UNPOOL_SHAPES:
+        for shape, where in UNPOOL_SHAPES + CITY_UNPOOL_SHAPES:
             n, h, w, c = shape
             full = (n, 2 * h, 2 * w, c)
             check_unpool_exact(torch, pk, plain, ints, full, dtype, errs)
@@ -411,8 +459,10 @@ def build_models(torch, Segmentator, dtype_name, seed):
 
 
 def run_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, T, gen):
-    """T co-training iterations of bench.py's workload; returns
-    (metrics, seconds, launches) with the counters reset just before."""
+    """T co-training iterations of bench.py's workload (the fused two-group
+    forward, as dct_tpu runs it); returns (metrics, seconds, launches) with
+    the counters reset just before."""
+    from dct_tpu_torch.bench import LAUNCHES_PER_ITERATION
     K, B, Bu, N = 2, 4, 4, img_u8.shape[0]
     epoch = make_epoch(segs, 4, ce, train_jsd=True, train_adv=True,
                        augment_labeled=True, augment_unlabeled=True, eps_fgsm=0.03)
@@ -429,9 +479,10 @@ def run_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, T, gen):
         if not bool(torch.isfinite(m[name]).all()):
             raise AssertionError(f"non-finite {name}: {m[name]}")
     for name, count in launches.items():
-        if count != 12 * T:          # 6 forwards (or backwards) × 2 per iteration
-            raise AssertionError(f"{name} launched {count} times in {T} "
-                                 f"iterations, expected {12 * T}: {launches}")
+        # 4 forwards (or backwards) × 2 per iteration
+        if count != LAUNCHES_PER_ITERATION * T:
+            raise AssertionError(f"{name} launched {count} times in {T} iterations, "
+                                 f"expected {LAUNCHES_PER_ITERATION * T}: {launches}")
     return m, dt, launches
 
 
@@ -497,6 +548,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     start = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.jsonl").write_text("")
 
     def done(phase: str) -> None:
         print(f"{phase} done at {time.perf_counter() - start:.1f} s", flush=True)
@@ -516,9 +569,8 @@ def main() -> int:
           f"baselines' {B4_POOL_SHAPES} and {B4_UNPOOL_SHAPES}, at the spleen "
           f"config's 512² shapes {SPLEEN_POOL_SHAPES} (pool) and {SPLEEN_UNPOOL_SHAPES} "
           f"(unpool), at ragged shapes {RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
-    print(json.dumps({"kernel_detail": detail, "card": card}), flush=True)
-    print(json.dumps({"launch_floor_ms": launch_floor_ms(torch), "card": card}),
-          flush=True)
+    emit({"kernel_detail": detail, "card": card})
+    emit({"launch_floor_ms": launch_floor_ms(torch), "card": card})
 
     ce = get_loss_fn("cross_entropy")
     ref_errs = check_reference(torch, Enet, ce)
@@ -536,20 +588,23 @@ def main() -> int:
                         gt_u8, rs, 3, gen)
     print(f"phase 3: fp32 step, 3 iterations in {dt:.2f} s, sup "
           f"{m['sup_loss'][-1].tolist()} jsd {float(m['jsd_loss'][-1]):.5f} "
-          f"adv {float(m['adv_loss'][-1]):.5f}; 24 + 24 launches/iteration", flush=True)
+          f"adv {float(m['adv_loss'][-1]):.5f}; 8 launches of each kernel an iteration",
+          flush=True)
 
     done("phase 3")
     # phase 4: the port's bench at its full workload (its own models and
     # data); each timed call runs with the counters set to 0 just before it
-    # and read just after, and the bench fails unless 12 of each launched
+    # and read just after, and the bench fails unless 8 of each launched
     # an iteration
     bench_line = bench.run("cuda")
-    print(json.dumps(bench_line), flush=True)
+    emit(bench_line)
     launches = bench_line["launches"]
     for name, count in launches.items():
-        want = 12 * bench_line["iterations"] * bench_line["windows"]
+        want = bench.LAUNCHES_PER_ITERATION * bench_line["iterations"] * bench_line["windows"]
         if count != want:
             raise AssertionError(f"bench: {name} launched {count} times, expected {want}")
+    # the unfused step in the same process, for the fused forward's gain
+    emit({"bench_unfused": bench.run("cuda", fuse_forward=False)})
     segs = build_models(torch, Segmentator, "bfloat16", 10)
     run_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8, rs, 3, gen)
     profile_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8, rs, gen)
@@ -558,17 +613,22 @@ def main() -> int:
     done("phase 4")
     cli = run_cli(torch, pk, card)
     done("phase 5")
-    per_iteration = {"cotrain": dict.fromkeys(pk.KERNELS, 12),
+    per_iteration = {"cotrain": dict.fromkeys(pk.KERNELS, bench.LAUNCHES_PER_ITERATION),
                      **run_baselines(torch, pk, card, cli["tree"], cli["val"], cli["buckets"])}
     done("phase 6")
     summary_launches = run_summary(torch, pk, card, cli)
     done("phase 7")
     spleen = run_spleen(torch, pk, card)
     done("phase 8")
+    city = run_city(torch, pk, card)
+    done("phase 9")
 
     kernels = []
+    main_path = {where for _, where in POOL_SHAPES + UNPOOL_SHAPES}
     for name in pk.KERNELS:
-        rows = [r for r in detail if r["name"] == name and r["dtype"] == "bfloat16"]
+        bf16 = [r for r in detail if r["name"] == name and r["dtype"] == "bfloat16"]
+        rows = [r for r in bf16 if r["where"] in main_path]
+        city_rows = [r for r in bf16 if r["where"] not in main_path]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -578,13 +638,19 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
+            # the same at the Cityscapes co-training config's two fused shapes
+            "city_ms": sum(r["ms"] for r in city_rows),
+            "city_plain_ms": sum(r["plain_ms"] for r in city_rows),
+            "city_bound_ms": sum(r["bound_ms"] for r in city_rows),
+            "city_library_ms": sum(r["library_ms"] for r in city_rows),
             "launches_cli": cli["launches"][name],
             "launches_eval": cli["eval_launches"][name],
             "launches_per_iteration": {k: v[name] for k, v in per_iteration.items()},
             "launches_summary": {k: v[name] for k, v in summary_launches.items()},
-            "launches_spleen_512": {k: v[name] for k, v in spleen.items()}})
+            "launches_spleen_512": {k: v[name] for k, v in spleen.items()},
+            "launches_city": {k: v[name] for k, v in city.items()}})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -755,12 +821,12 @@ def run_cli(torch, pk, card: str) -> dict:
           f"forwards launched {eval_launches}; CLI launches {launches}", flush=True)
     for (epoch, seconds), r in zip(epochs, rows):
         t_train, t_eval = float(r["t_train"]), float(r["t_eval"])
-        print(json.dumps({"cli_epoch": epoch, "t_train": t_train, "t_eval": t_eval,
-                          "t_host": seconds - t_train - t_eval,
-                          "images_per_sec": float(r["images_per_sec"]),
-                          "tf32_convs": torch.backends.cudnn.allow_tf32,
-                          "val_batch_dice_0": [float(r[f"val_batch_dice_0_{i}"]) for i in (1, 2, 3)],
-                          "card": card}), flush=True)
+        emit({"cli_epoch": epoch, "t_train": t_train, "t_eval": t_eval,
+              "t_host": seconds - t_train - t_eval,
+              "images_per_sec": float(r["images_per_sec"]),
+              "tf32_convs": torch.backends.cudnn.allow_tf32,
+              "val_batch_dice_0": [float(r[f"val_batch_dice_0_{i}"]) for i in (1, 2, 3)],
+              "card": card})
     del trainer, seg
 
     errs = check_trained_weights(torch, val, buckets, "results/ACDC_cotrain_r3/best_0.ckpt")
@@ -955,12 +1021,12 @@ def run_baselines(torch, pk, card: str, main_tree: Path, val, buckets) -> dict:
             for epoch, r in enumerate(runs[first:]):
                 row = _csv_rows(run)[epoch]
                 t_train, t_eval = float(row["t_train"]), float(row["t_eval"])
-                print(json.dumps({"cli": name, "cli_epoch": epoch, "t_train": t_train,
-                                  "t_eval": t_eval, "t_host": r["wall"] - t_train - t_eval,
-                                  "iterations": T,
-                                  "images_per_sec": float(row["images_per_sec"]),
-                                  "tf32_convs": torch.backends.cudnn.allow_tf32,
-                                  "card": card}), flush=True)
+                emit({"cli": name, "cli_epoch": epoch, "t_train": t_train,
+                      "t_eval": t_eval, "t_host": r["wall"] - t_train - t_eval,
+                      "iterations": T,
+                      "images_per_sec": float(row["images_per_sec"]),
+                      "tf32_convs": torch.backends.cudnn.allow_tf32,
+                      "card": card})
             if name == "vat":
                 per_iteration["vat_no_adv"] = check_vat_without_term(
                     torch, pk, trainer, make_vat_epoch, get_loss_fn("cross_entropy"))
@@ -1201,8 +1267,8 @@ def run_summary(torch, pk, card: str, cli: dict) -> dict:
               f"results/ACDC_cotrain_r3; each model's 3D dice mean = its best epoch's CSV "
               f"val_batch_dice; kappa {out['div']}; ens 3D dice "
               f"{[round(float(mean[f'ens_DSC{i}']), 4) for i in (1, 2, 3)]}", flush=True)
-        print(json.dumps({"summary": ensemble, "seconds": wall, "patients": P, "models": K,
-                          "launches": launches[ensemble], "card": card}), flush=True)
+        emit({"summary": ensemble, "seconds": wall, "patients": P, "models": K,
+              "launches": launches[ensemble], "card": card})
     maps = check_summary_maps(torch, cli["val"], cli["buckets"], "results/ACDC_cotrain_r3")
     print(f"phase 7: trained results/ACDC_cotrain_r3 (K = 2, soft vote), a padded "
           f"{EVAL_L}-slice bucket, class maps and votes on the card vs float64 on the "
@@ -1294,7 +1360,8 @@ def run_spleen(torch, pk, card: str) -> dict:
     wall = time.perf_counter() - t0
     cli_launches = dict(pk.LAUNCHES)
     P, K = len(trainer.val_buckets), trainer.K
-    want = dict(zip(FWD_BWD, (12 * T + 2 * P * K, 12 * T + 2 * P * K, 12 * T, 12 * T)))
+    n = 8 * T                          # the fused step: 4 ENet passes × 2 a kernel
+    want = dict(zip(FWD_BWD, (n + 2 * P * K, n + 2 * P * K, n, n)))
     if cli_launches != want or trainer.val_buckets.bucket_len != EVAL_L:
         raise AssertionError(f"spleen CLI: {T} iterations and {P * K} eval forwards of "
                              f"{trainer.val_buckets.bucket_len} slices launched "
@@ -1308,11 +1375,11 @@ def run_spleen(torch, pk, card: str) -> dict:
     for k, v in rows[0].items():
         if not math.isfinite(float(v)) or ("dice" in k and not 0.0 <= float(v) <= 1.0):
             raise AssertionError(f"spleen epoch 0: {k} = {v}")
-    print(json.dumps({"cli": "cotraining_spleen_512", "cli_epoch": 0,
-                      "t_train": float(rows[0]["t_train"]), "t_eval": float(rows[0]["t_eval"]),
-                      "t_call": wall, "iterations": T,
-                      "images_per_sec": float(rows[0]["images_per_sec"]),
-                      "tf32_convs": torch.backends.cudnn.allow_tf32, "card": card}), flush=True)
+    emit({"cli": "cotraining_spleen_512", "cli_epoch": 0,
+          "t_train": float(rows[0]["t_train"]), "t_eval": float(rows[0]["t_eval"]),
+          "t_call": wall, "iterations": T,
+          "images_per_sec": float(rows[0]["images_per_sec"]),
+          "tf32_convs": torch.backends.cudnn.allow_tf32, "card": card})
     out, s_wall, s_launches = summarise(torch, pk, run, P * K, "--axises", "1")
     check_summary_headers(run, committed)
     print(f"phase 8: spleen CLI at 512², 1 epoch of {T} iterations in {wall:.1f} s "
@@ -1324,6 +1391,269 @@ def run_spleen(torch, pk, card: str) -> dict:
           f"{EVAL_L}-slice bucket at 512² on the card vs float64 CPU (share of scale): "
           f"{errs}", flush=True)
     return {"cli": cli_launches, "summary": s_launches}
+
+
+# the Cityscapes tree phase 9 writes: 4 cities × 20 train and 2 val images
+# at Cityscapes' own 1024×2048, raw label ids with void ids among them
+CITY_RAW_IDS = (7, 8, 11, 21, 23, 24, 26, 33, 0, 1, 4)
+CITY_COUNTS = {"train": 20, "val": 2}
+CITY_NAMES = ("aachen", "bochum", "bremen", "cologne")
+CITY_SIZE = (1024, 2048)
+
+
+def write_city_tree(root: Path, seed: int = 3) -> None:
+    """root/leftImg8bit/<mode>/<city>/<stem>_leftImg8bit.png and the
+    matching gtFine/..._gtFine_labelIds.png: horizontal bands of raw ids
+    with a disc of another, and an RGB rendering of them (a colour an id and
+    blocky noise), written by 8 threads at PNG level 1."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    h, w = CITY_SIZE
+    yy, xx = np.mgrid[0:h, 0:w]
+    palette = rs.randint(0, 256, (256, 3)).astype(np.int16)
+    noise = rs.randint(-20, 21, (h // 4, w // 4, 3)).astype(np.int16).repeat(4, 0).repeat(4, 1)
+    jobs = []
+    for mode, n in CITY_COUNTS.items():
+        for city in CITY_NAMES:
+            for sub in ("leftImg8bit", "gtFine"):
+                (root / sub / mode / city).mkdir(parents=True, exist_ok=True)
+            jobs += [(mode, city, i, int(rs.randint(2**31))) for i in range(n)]
+
+    def one(job):
+        mode, city, i, seed_i = job
+        r = np.random.RandomState(seed_i)
+        bands = np.array(CITY_RAW_IDS)[r.randint(0, len(CITY_RAW_IDS), 4)]
+        raw = bands[np.minimum(yy * 4 // h + xx * r.randint(0, 3) // w, 3)].astype(np.uint8)
+        cy, cx, rad = r.randint(0, h), r.randint(0, w), r.randint(h // 6, h // 3)
+        raw[(yy - cy) ** 2 + (xx - cx) ** 2 < rad * rad] = CITY_RAW_IDS[r.randint(len(CITY_RAW_IDS))]
+        img = (palette[raw] + np.roll(noise, r.randint(w), axis=1)).clip(0, 255).astype(np.uint8)
+        stem = f"{city}_{i:06d}_000019"
+        Image.fromarray(img).save(root / "leftImg8bit" / mode / city / f"{stem}_leftImg8bit.png",
+                                  compress_level=1)
+        Image.fromarray(raw).save(root / "gtFine" / mode / city / f"{stem}_gtFine_labelIds.png",
+                                  compress_level=1)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+
+
+def city_iteration_launches(flags) -> tuple:
+    """(forward, backward) launches of each kernel in one Cityscapes
+    co-training iteration with these (2,) FGSM flags: 2 a pass; forward
+    passes: the two fused ones, then per direction FGSM's generation,
+    clean and adversarial forwards (3) or VAT's clean, perturbed, clean
+    and adversarial forwards (4); backward passes: the fused pair, and per
+    direction the attack's input gradient and the adversarial forward's."""
+    return 2 * (2 + sum(3 if f else 4 for f in flags)), 2 * (2 + 2 * 2)
+
+
+def run_city(torch, pk, card: str) -> dict:
+    """Phase 9: both Cityscapes CLIs at full width on a synthetic
+    1024×2048 tree, a resume each, and one iteration at the configs' λ
+    maxima against float64 on the CPU. Returns the launches of each path."""
+    import shutil
+    from dct_tpu_torch.train import city as city_mod
+    from dct_tpu_torch.train_cotraining_city import main as cotrain_main
+    from dct_tpu_torch.train_sup_city import main as sup_main
+    tree = Path("build/city_synthetic")
+    t0 = time.perf_counter()
+    shutil.rmtree(tree, ignore_errors=True)
+    write_city_tree(tree)
+    print(f"phase 9: wrote the {CITY_SIZE[0]}×{CITY_SIZE[1]} Cityscapes tree "
+          f"({len(CITY_NAMES)} cities, {CITY_COUNTS}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the flags each epoch draws, and the launches of each epoch call and of
+    # each eval and prediction forward, read around the trainer's own parts
+    drawn, evals = [], {"forwards": 0, **dict.fromkeys(pk.KERNELS, 0)}
+    draw, make_eval, make_pred = (city_mod.CoTrainerCity.draw_indices,
+                                  city_mod.make_city_eval_step, city_mod.make_city_pred_step)
+
+    def recording_draw(self, T):
+        out = draw(self, T)
+        drawn.append(out[-1].copy())
+        return out
+
+    def counted(make):
+        def build(*args):
+            step = make(*args)
+
+            def run(*a):
+                before = dict(pk.LAUNCHES)
+                out = step(*a)
+                for k in pk.KERNELS:
+                    evals[k] += pk.LAUNCHES[k] - before[k]
+                evals["forwards"] += 1
+                return out
+            return run
+        return build
+
+    results = {}
+    city_mod.CoTrainerCity.draw_indices = recording_draw
+    city_mod.make_city_eval_step = counted(make_eval)
+    city_mod.make_city_pred_step = counted(make_pred)
+    try:
+        for name, main, config, epochs in (
+                ("city_cotraining", cotrain_main, "configs/cityscapes_cotraining.yaml", (2, 3)),
+                ("city_supervised", sup_main, "configs/cityscapes_supervised.yaml", (1, 2))):
+            run = Path(f"build/{name}_run")
+            shutil.rmtree(run, ignore_errors=True)
+            common = ["--config", config, f"Dataset.root_dir={tree}", "Dataset.subsample=1",
+                      f"Trainer.save_dir={run}"]
+            drawn.clear()
+            evals.update({"forwards": 0, **dict.fromkeys(pk.KERNELS, 0)})
+            torch.cuda.synchronize()
+            pk.reset_launch_counts()
+            t0 = time.perf_counter()
+            first = main(common + [f"Trainer.max_epoch={epochs[0]}"])
+            trainer = main(common + [f"Trainer.max_epoch={epochs[1]}",
+                                     f"Trainer.checkpoint={run}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(pk.LAUNCHES)
+            inner = getattr(trainer, "inner", trainer)
+            check_city_run(name, run, inner, epochs[1], drawn, evals, launches,
+                           train_adv=name == "city_cotraining")
+            for epoch, r in enumerate(_csv_rows(run)):
+                emit({"cli": name, "cli_epoch": epoch, "t_train": float(r["t_train"]),
+                      "t_eval": float(r["t_eval"]),
+                      "iterations": inner.iters_per_epoch,
+                      "images_per_sec": float(r["images_per_sec"]),
+                      "image_size": list(inner.val_set.image_size),
+                      "tf32_convs": torch.backends.cudnn.allow_tf32,
+                      "card": card})
+            print(f"phase 9: {name}: {epochs[0]} epochs + resume to {epochs[1]} in "
+                  f"{wall:.1f} s, {inner.iters_per_epoch} iterations an epoch, launches "
+                  f"{launches} ({evals['forwards']} eval and prediction forwards)", flush=True)
+            results[name] = launches
+            if name == "city_cotraining":
+                cot_trainer = trainer
+            del first
+    finally:
+        city_mod.CoTrainerCity.draw_indices = draw
+        city_mod.make_city_eval_step, city_mod.make_city_pred_step = make_eval, make_pred
+    results["city_iteration"] = check_city_iteration(torch, pk, cot_trainer,
+                                                     Path("build/city_cotraining_run"))
+    return results
+
+
+def check_city_run(name, run, trainer, max_epoch, drawn, evals, launches,
+                   train_adv) -> None:
+    """CSV columns and rows, finite losses, mIoU in [0, 1], checkpoints,
+    the resume's start epoch, the prediction dumps (every 10th epoch of the
+    co-training run), and the launches of every epoch's iterations and of
+    every eval and prediction forward against what the flags say."""
+    K = trainer.K
+    rows = _csv_rows(run)
+    header = (["epoch"] + [f"{p}_{s}" for p in ("val_mIoU", "val_acc") for s in range(K)]
+              + [f"sup_loss_{s}" for s in range(K)]
+              + ["jsd_loss", "adv_loss", "images_per_sec", "t_train", "t_eval"])
+    if list(rows[0]) != header or [int(r["epoch"]) for r in rows] != list(range(max_epoch)):
+        raise AssertionError(f"{name}: metrics.csv header {list(rows[0])}, epochs "
+                             f"{[r['epoch'] for r in rows]}; expected {header}, {max_epoch}")
+    for r in rows:
+        for k, v in r.items():
+            if not math.isfinite(float(v)) or ("mIoU" in k and not 0.0 <= float(v) <= 1.0):
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v}")
+        if train_adv and not float(r["adv_loss"]) > 0:
+            raise AssertionError(f"{name}: the adversarial term did not run: {r}")
+    for s in range(K):
+        for f in (f"last_{s}.ckpt", f"best_{s}.ckpt"):
+            if not (run / f).is_file():
+                raise AssertionError(f"{name}: {run / f} missing")
+    if trainer.start_epoch != max_epoch - 1:
+        raise AssertionError(f"{name}: resumed at epoch {trainer.start_epoch}")
+    dumps = sorted(p.relative_to(run).as_posix() for p in run.rglob("*.png"))
+    want = (sorted(f"iter000/eval/{s}/{stem}.png" for s in range(K)
+                   for stem in trainer.val_set.filenames) if train_adv else [])
+    if dumps != want:
+        raise AssertionError(f"{name}: {len(dumps)} prediction dumps, expected {len(want)}")
+    T = trainer.iters_per_epoch
+    if len(drawn) != max_epoch or any(len(f) != T for f in drawn):
+        raise AssertionError(f"{name}: {len(drawn)} epochs drawn, expected {max_epoch} of {T}")
+    if train_adv:
+        fwd = sum(city_iteration_launches(f)[0] for flags in drawn for f in flags)
+        bwd = city_iteration_launches(drawn[0][0])[1] * T * max_epoch
+    else:
+        fwd = bwd = 2 * T * max_epoch
+    n_val = len(trainer._val_batches())
+    n_eval = K * n_val * (max_epoch + (1 if train_adv else 0))   # the epoch-0 dumps
+    want_l = dict(zip(FWD_BWD, (fwd + 2 * n_eval, fwd + 2 * n_eval, bwd, bwd)))
+    want_e = dict(zip(FWD_BWD, (2 * n_eval, 2 * n_eval, 0, 0)))
+    if launches != want_l or {k: evals[k] for k in FWD_BWD} != want_e \
+            or evals["forwards"] != n_eval:
+        raise AssertionError(f"{name}: launched {launches} ({evals}), expected {want_l} with "
+                             f"{n_eval} eval and prediction forwards ({want_e})")
+
+
+def check_city_iteration(torch, pk, trainer, run: Path) -> dict:
+    """One Cityscapes co-training iteration at full width (256×512, K = 2,
+    B = Bu = 4) at the configs' λ maxima (λ_cot 1.0, λ_adv 0.005), with
+    FGSM in one direction and VAT in the other, from the co-training run's
+    last weights: on the card (fp32, TF32 off) and in float64 on the CPU,
+    the same indices and VAT noise. Adam's eps is 1e-3 on both sides (the
+    config's 1e-8 would turn the exactly-zero gradients of conv biases ahead
+    of a BatchNorm, which each side computes as rounding noise, into ±lr
+    steps). Fails unless the losses agree within 1e-4 relative (the
+    adversarial one 2e-3: FGSM's sign flips where the two input gradients
+    round apart, and VAT's ξ = 1e-6 direction is fp32 rounding), each
+    model's update has cosine ≥ 0.99 to the float64 one, the running
+    statistics agree within 1e-3 of each leaf's scale, and the launches are
+    what ``city_iteration_launches`` says. Returns the launches."""
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train.city import make_city_cotrain_epoch
+    from dct_tpu_torch.cli import supervised_loss
+    from dct_tpu_torch.config import yaml_parser
+    config = yaml_parser("configs/cityscapes_cotraining.yaml", [])
+    sds = [load_checkpoint(run / f"last_{s}.ckpt")["segmentator"] for s in range(2)]
+    for sd in sds:
+        sd["optim_dict"] = {**sd["optim_dict"], "eps": 1e-3}
+    idx = trainer.draw_indices(1)[:4]
+    flags = np.array([[True, False]])
+    B, (H, W) = trainer.batch_size, trainer.val_set.image_size
+    noise = torch.randn((1, 2, B, H, W, 3), generator=torch.Generator().manual_seed(9))
+    out = {}
+    for side, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        segs = [Segmentator.from_state_dict(sd, device=side) for sd in sds]
+        for s in segs:
+            s.compute_dtype = dtype
+        initial = [{k: v.detach().cpu().double() for k, v in s.net.state_dict().items()}
+                   for s in segs]
+        epoch = make_city_cotrain_epoch(segs, 19, supervised_loss(config), True, True,
+                                        trainer.eps_fgsm, trainer.eps_vat)
+        with tf32_off(torch):
+            torch.cuda.synchronize()
+            pk.reset_launch_counts()
+            m = epoch(trainer._img_cat.to(side), trainer._gt_cat.to(side), *idx, flags,
+                      None, 5e-4, 1.0, 0.005, vat_noise=noise.to(side))
+            torch.cuda.synchronize()
+        launches = dict(pk.LAUNCHES)
+        out[side] = ({k: v.cpu().double() for k, v in m.items()}, initial,
+                     [{k: v.detach().cpu().double() for k, v in s.net.state_dict().items()}
+                      for s in segs], launches)
+    (m_card, init, new_card, launches), (m_ref, _, new_ref, _) = out["cuda"], out["cpu"]
+    errs = {k: float(((m_card[k] - m_ref[k]).abs() / m_ref[k].abs()).max()) for k in m_ref}
+    cos, stats = [], []
+    for s in range(2):
+        keys = [k for k in init[s] if "running" not in k]
+        upd = [torch.cat([(new[s][k] - init[s][k]).flatten() for k in keys])
+               for new in (new_card, new_ref)]
+        cos.append(float(torch.nn.functional.cosine_similarity(*upd, dim=0)))
+        stats.append(max(float((new_card[s][k] - new_ref[s][k]).abs().max())
+                         / max(1.0, float(new_ref[s][k].abs().max()))
+                         for k in init[s] if "running" in k))
+    fwd, bwd = city_iteration_launches(flags[0])
+    res = {"loss_rel_err": errs, "update_cosine": cos, "stats_err": stats,
+           "losses_card": {k: v.flatten().tolist() for k, v in m_card.items()},
+           "launches": launches}
+    if (errs["sup_loss"] > 1e-4 or errs["jsd_loss"] > 1e-4 or errs["adv_loss"] > 2e-3
+            or min(cos) < 0.99 or max(stats) > 1e-3
+            or launches != dict(zip(FWD_BWD, (fwd, fwd, bwd, bwd)))):
+        raise AssertionError(f"Cityscapes iteration on the card vs float64: {res}")
+    print(f"phase 9: one co-training iteration at 256×512, λ_cot 1.0, λ_adv 0.005, flags "
+          f"[FGSM, VAT], on the card (TF32 off) vs float64 on the CPU: {res}", flush=True)
+    return launches
 
 
 def profile_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, gen):

@@ -17,15 +17,19 @@ from .models.segmentator import Segmentator
 
 
 def fgsm(seg: Segmentator, img: torch.Tensor, gt: torch.Tensor,
-         loss_fn: Callable, epsilon: float = 0.05
+         loss_fn: Callable, epsilon: float = 0.05, update_stats: bool = True,
+         dtype: Optional[torch.dtype] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """FGSM: ``img + ε·sign(∇_img loss)``. When ``img`` has more rows than
     ``gt``, the extra rows are labeled with the model's own argmax. The
     forward updates BatchNorm's running statistics, as dct_tpu keeps that
-    forward's. Returns (adversarial image, noise, softmax probabilities of
-    the clean forward)."""
+    forward's in the co-training step, unless ``update_stats`` is False (the
+    Cityscapes step, which throws them away). ``dtype`` overrides the
+    Segmentator's compute dtype for the forward and its input gradient
+    (dct_tpu's ``adv_dtype``). Returns (adversarial image, noise, softmax
+    probabilities of the clean forward)."""
     x = img.detach().requires_grad_(True)
-    logits = seg.apply_train(x)
+    logits = seg.apply_train(x, update_stats=update_stats, dtype=dtype)
     if gt.shape[0] < x.shape[0]:
         pseudo = torch.argmax(logits[gt.shape[0]:].detach(), dim=-1)
         gt = torch.cat([gt, pseudo], dim=0)
@@ -43,20 +47,22 @@ def _l2_normalize(d: torch.Tensor) -> torch.Tensor:
 def vat_perturbation(seg: Segmentator, img: torch.Tensor, xi: float = 1e-6,
                      epsilon: float = 10.0, ip: int = 1, clamp: bool = True,
                      d: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     update_stats: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Virtual adversarial perturbation by ``ip`` power iterations
     (arXiv 1704.03976), as dct_tpu computes it.
 
     The clean forward runs without a graph and updates BatchNorm's running
-    statistics; each perturbed forward normalises with its batch statistics
+    statistics (unless ``update_stats`` is False: the Cityscapes step keeps
+    none of VAT's); each perturbed forward normalises with its batch statistics
     and updates nothing (dct_tpu throws their statistics away). The starting
     noise ``d``, of ``img``'s shape, is drawn from ``generator`` unless
     given. Returns (adversarial image, clamped to [0, 1] when ``clamp``;
     ``r_adv``), both detached; ``r_adv`` has L2 norm ``epsilon`` per sample
     unless the power iteration's gradient is exactly zero."""
     with torch.no_grad():
-        clean_logits = seg.apply_train(img)
+        clean_logits = seg.apply_train(img, update_stats=update_stats)
     if d is None:
         d = torch.randn(img.shape, generator=generator, device=img.device,
                         dtype=img.dtype)

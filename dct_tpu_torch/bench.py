@@ -10,7 +10,8 @@ prints ONE JSON line with ``bench.py``'s keys, ``{"metric":
 Workload (``bench.py``'s): two ENets, 4 classes, bf16 compute with fp32
 parameters and Adam state, Adam 1e-3 with L2 1e-4, StepLR 90/0.1; 4 labeled
 images per model and 4 shared unlabeled ones at 256²; jsd, FGSM (ε 0.03)
-and augmentation on; λ_cot 0.5, λ_adv 0.05; T = 30 iterations a call of
+and augmentation on, the labeled and unlabeled forwards fused into one
+two-group forward per model (``bench.py`` takes dct_tpu's default); λ_cot 0.5, λ_adv 0.05; T = 30 iterations a call of
 ``train/steps.py:make_cotrain_epoch`` on a uint8 set of 1674 slices and
 labels drawn from ``np.random.RandomState(0)`` and moved to the device, the
 batch indices drawn from the same ``RandomState``.
@@ -29,7 +30,7 @@ elementwise work), over the median call's time and the card's dense bf16
 peak (a table keyed by the card's name; an unknown card raises).
 
 Gates, which raise: every ``sup_loss``, ``jsd_loss`` and ``adv_loss`` of
-every call finite (a NaN step can be faster), and on the card exactly 12
+every call finite (a NaN step can be faster), and on the card exactly 8
 launches of each of the four pool kernels per iteration
 (``ops/pool_kernels.LAUNCHES``; 0 on the CPU, where the kernels' plain
 versions run). ``--device`` defaults to the card and raises without one.
@@ -58,7 +59,11 @@ TORCH_CPU_BASELINE_IPS = 2.727          # bench.py:24
 # data sheet, SXM5 part
 BF16_DENSE_PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": 989.4e12}
 K, B, BU, C = 2, 4, 4, 4
-LAUNCHES_PER_ITERATION = 12             # 6 ENet passes × 2 of each kernel
+# 4 ENet passes × 2 of each kernel: the two fused labeled + unlabeled
+# forwards (one per model), FGSM's generation forward and the adversarial
+# forward, and the same four backward; 6 passes unfused
+LAUNCHES_PER_ITERATION = 8
+LAUNCHES_PER_ITERATION_UNFUSED = 12
 
 
 def card_line() -> str:
@@ -83,9 +88,11 @@ def _check_finite(m: Dict[str, torch.Tensor]) -> None:
 
 
 def run(device="cuda", N: int = 1674, H: int = 256, T: int = 30,
-        windows: int = 5) -> dict:
+        windows: int = 5, fuse_forward: bool = True) -> dict:
     """The bench on ``device`` at N slices of H², T iterations a call, W =
-    ``windows`` timed calls; returns the JSON line's dict."""
+    ``windows`` timed calls; returns the JSON line's dict. ``fuse_forward``
+    False runs the unfused step instead (6 ENet passes, 12 launches of each
+    kernel an iteration), to compare the two in one process."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     arch = {"name": "enet", "num_classes": C, "compute_dtype": "bfloat16"}
@@ -98,7 +105,8 @@ def run(device="cuda", N: int = 1674, H: int = 256, T: int = 30,
     gt_u8 = torch.from_numpy(rs.randint(0, 4, (N, H, H)).astype(np.uint8)).to(dev)
     epoch = make_cotrain_epoch(segs, C, get_loss_fn("cross_entropy"), train_jsd=True,
                                train_adv=True, augment_labeled=True,
-                               augment_unlabeled=True, eps_fgsm=0.03)
+                               augment_unlabeled=True, eps_fgsm=0.03,
+                               fuse_forward=fuse_forward)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def sync() -> None:
@@ -113,7 +121,8 @@ def run(device="cuda", N: int = 1674, H: int = 256, T: int = 30,
     _check_finite(call(T))                                    # warm-up
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    want = dict.fromkeys(pool_kernels.KERNELS, LAUNCHES_PER_ITERATION * T if on_card else 0)
+    per_iteration = LAUNCHES_PER_ITERATION if fuse_forward else LAUNCHES_PER_ITERATION_UNFUSED
+    want = dict.fromkeys(pool_kernels.KERNELS, per_iteration * T if on_card else 0)
     ips: List[float] = []
     launches = dict.fromkeys(pool_kernels.KERNELS, 0)
     for _ in range(windows):
@@ -148,7 +157,8 @@ def run(device="cuda", N: int = 1674, H: int = 256, T: int = 30,
             "ips_min": min(ips), "ips_max": max(ips), "ips_windows": ips,
             "windows": windows, "iterations": T, "peak_mem_gib": peak_mem,
             "flops_per_iteration": flops, "mfu_bf16_pct": mfu,
-            "launches": launches, "device": dev.type, "card": card}
+            "launches": launches, "fuse_forward": fuse_forward, "device": dev.type,
+            "card": card}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

@@ -54,4 +54,11 @@ def grp_regex(config: Dict[str, Any], loader: str) -> str:
 def reject_parallel(trainer_cfg: Dict[str, Any]) -> None:
     if trainer_cfg.get("parallel") is not None:
         raise NotImplementedError(
-            "Trainer.parallel is not ported yet (ROADMAP item 15, parallel/)")
+            "Trainer.parallel is not ported yet (ROADMAP queue 1 item 8, parallel/)")
+
+
+def reject_coco_init(trainer_cfg: Dict[str, Any]) -> None:
+    if trainer_cfg.get("coco_init_pth"):
+        raise NotImplementedError(
+            "Trainer.coco_init_pth is not ported yet (ROADMAP queue 1 item 6, "
+            "DeepLab and its COCO-pretrained weights)")

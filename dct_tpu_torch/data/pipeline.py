@@ -1,9 +1,9 @@
 """Device-resident data path (``dct_tpu/data/pipeline.py``): the uint8
-(N,H,W) dataset is uploaded to the device once, a batch is an index tensor,
-and the gather, normalisation and augmentation run on the device. The host
-draws the batch indices (``EpochBatcher``, ``InfiniteBatcher``) and pads
-patients into eval buckets (``PatientBuckets``) with dct_tpu's exact draws
-and layout."""
+dataset, grayscale (N,H,W) or RGB (N,H,W,3), is uploaded to the device
+once, a batch is an index tensor, and the gather, normalisation and
+augmentation run on the device. The host draws the batch indices
+(``EpochBatcher``, ``InfiniteBatcher``) and pads patients into eval buckets
+(``PatientBuckets``) with dct_tpu's exact draws and layout."""
 from __future__ import annotations
 
 import re
@@ -17,9 +17,10 @@ from .dataset import MedicalImageDataset
 
 
 class DeviceDataset:
-    """The packed uint8 (N,H,W) arrays of a MedicalImageDataset uploaded to
-    ``device`` (one transfer each); indexing and normalisation happen on
-    the device."""
+    """The packed uint8 arrays of a dataset (``data["img"]`` (N,H,W) or
+    (N,H,W,3), ``data["gt"]`` (N,H,W)): a MedicalImageDataset or a
+    CityscapesDataset, uploaded to ``device`` (one transfer each); indexing
+    and normalisation happen on the device."""
 
     def __init__(self, ds: MedicalImageDataset, device: torch.device) -> None:
         self.img = torch.from_numpy(ds.data["img"]).to(device)
@@ -35,7 +36,8 @@ def normalize_gather(img_u8: torch.Tensor, gt_u8: torch.Tensor,
                      idx: torch.Tensor, dtype=torch.float32
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather a batch by indices and normalise: uint8 → [0,1] float
-    (B,H,W,C) (grayscale (N,H,W) gains a channel axis); labels → int64."""
+    (B,H,W,C) (grayscale (N,H,W) gains a channel axis, RGB (N,H,W,3) keeps
+    its own); labels → int64."""
     img = img_u8[idx].to(dtype) / 255.0
     gt = gt_u8[idx].long()
     if img.dim() == 3:
@@ -60,26 +62,35 @@ def gather_augment_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
 
 
 class EpochBatcher:
-    """Shuffled, drop-last batch indices for one pass."""
+    """Batch indices for one pass: shuffled (a ``rs.permutation``) or in
+    order, and drop-last, or padded with the pass's first indices up to a
+    whole batch (so those items count twice, as in dct_tpu)."""
 
-    def __init__(self, n: int, batch_size: int) -> None:
+    def __init__(self, n: int, batch_size: int, shuffle: bool = True,
+                 drop_last: bool = True) -> None:
         assert n >= batch_size, (n, batch_size)
         self.n = n
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
 
     def epoch(self, rs: np.random.RandomState) -> np.ndarray:
-        n_batches = self.n // self.batch_size
-        return rs.permutation(self.n)[:n_batches * self.batch_size].reshape(
-            n_batches, self.batch_size)
+        order = rs.permutation(self.n) if self.shuffle else np.arange(self.n)
+        n_batches = (self.n // self.batch_size if self.drop_last
+                     else -(-self.n // self.batch_size))
+        if not self.drop_last and self.n % self.batch_size:
+            order = np.concatenate([order, order[:n_batches * self.batch_size - self.n]])
+        return order[:n_batches * self.batch_size].reshape(n_batches, self.batch_size)
 
 
 class InfiniteBatcher:
-    """Endless reshuffling batch stream: ``take(k)`` → (k, B) indices,
-    spanning passes as needed. The first pass is drawn from ``rs`` at
-    construction."""
+    """Endless batch stream: ``take(k)`` → (k, B) indices, spanning passes
+    as needed, reshuffled each pass unless ``shuffle`` is False. The first
+    pass is drawn from ``rs`` at construction."""
 
-    def __init__(self, n: int, batch_size: int, rs: np.random.RandomState) -> None:
-        self.inner = EpochBatcher(n, batch_size)
+    def __init__(self, n: int, batch_size: int, rs: np.random.RandomState,
+                 shuffle: bool = True) -> None:
+        self.inner = EpochBatcher(n, batch_size, shuffle, drop_last=True)
         self.rs = rs
         self._buf = self.inner.epoch(self.rs)
         self._pos = 0

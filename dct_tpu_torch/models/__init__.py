@@ -1,5 +1,7 @@
-"""Architecture registry (``dct_tpu/models/__init__.py``). This slice ports
-``enet``; the other architectures come in later slices."""
+"""Architecture registry (``dct_tpu/models/__init__.py``). Ported:
+``enet`` and ``deeplabenet``, the reference's 3-channel Cityscapes ENet,
+which is ENet with ``in_channels: 3`` by default; the other architectures
+come in later slices."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -8,10 +10,14 @@ from torch import nn
 
 from .enet import Enet
 
-ARCH_CALLABLES: Dict[str, Any] = {"enet": Enet}
+ARCH_CALLABLES: Dict[str, Any] = {
+    "enet": Enet,
+    "deeplabenet": lambda **kw: Enet(**{"in_channels": 3, **kw}),
+}
 
 # Per-arch BatchNorm momentum, flax convention: new = m·old + (1 − m)·batch.
-BN_MOMENTUM: Dict[str, float] = {"enet": 0.9}
+# The fused two-group co-training forward runs only for an arch listed here.
+BN_MOMENTUM: Dict[str, float] = {"enet": 0.9, "deeplabenet": 0.9}
 
 
 def get_arch(arch: str, kwargs: Dict[str, Any]) -> nn.Module:

@@ -54,7 +54,17 @@ class BatchNorm(nn.Module):
     dtype; the output takes the input's dtype. With ``update_stats`` False,
     train mode normalises with the batch statistics and leaves the running
     ones as they are (VAT's perturbed forwards, whose statistics dct_tpu
-    throws away)."""
+    throws away).
+
+    With ``groups`` = 2 (the fused two-group forward of
+    ``dct_tpu/train/steps.py:make_cotrain_epoch``), the batch is the
+    labeled images stacked on the unlabeled ones: each half is normalised
+    with its own batch statistics (one ``native_batch_norm`` over each
+    half's view, so ``channels_last`` stays as it is), and the running
+    statistics take the halves in order, labeled first:
+    r1 = m·r0 + (1 − m)·b_lab, then r2 = m·r1 + (1 − m)·b_unlab, which
+    is dct_tpu's composed ``m·kg[:,0] + kg[:,1] − m·r0`` up to float
+    reassociation."""
 
     def __init__(self, channels: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM) -> None:
@@ -62,6 +72,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.update_stats = True
+        self.groups = 1
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -74,15 +85,23 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean.to(wdt),
                                 self.running_var.to(wdt), weight, bias,
                                 False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(x, weight, bias, None, None,
-                                                  True, 0.0, self.eps)
-        if not self.update_stats:
-            return y
-        with torch.no_grad():     # running = m·running + (1 − m)·batch
-            var = invstd.pow(-2) - self.eps
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype), 1 - self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype), 1 - self.momentum)
-        return y
+        parts = x.chunk(self.groups, dim=0) if self.groups > 1 else (x,)
+        if any(p.shape[0] != parts[0].shape[0] for p in parts):
+            raise ValueError(f"a batch of {x.shape[0]} does not split into "
+                             f"{self.groups} equal groups")
+        ys = []
+        for part in parts:
+            y, mean, invstd = torch.native_batch_norm(part, weight, bias, None, None,
+                                                      True, 0.0, self.eps)
+            ys.append(y)
+            if self.update_stats:
+                with torch.no_grad():     # running = m·running + (1 − m)·batch
+                    var = invstd.pow(-2) - self.eps
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                            1 - self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype),
+                                           1 - self.momentum)
+        return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
 
 
 @torch.no_grad()

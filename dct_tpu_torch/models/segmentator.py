@@ -21,10 +21,21 @@ from ..optim import build_optimizer
 from ..schedules import get_lr_schedule
 from ..utils.convert import (adam_state_to_jax, load_adam_state,
                              params_from_jax, params_to_jax)
-from . import get_arch
+from . import BN_MOMENTUM, get_arch
 from .layers import BatchNorm, init_weights_
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def as_dtype(dtype) -> Optional[torch.dtype]:
+    """A torch dtype from a dtype, its name ("float32", "bfloat16",
+    "float64") or None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype)
+    if name not in (*_DTYPES, "float64"):
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return getattr(torch, name)
 
 
 class Segmentator:
@@ -36,6 +47,9 @@ class Segmentator:
         self.optim_dict = dict(optim_dict)
         self.scheduler_dict = dict(scheduler_dict)
         self.arch_name = arch_dict["name"]
+        # the arch's uniform BatchNorm momentum; None disables the fused
+        # two-group co-training forward, as in dct_tpu
+        self.bn_momentum = BN_MOMENTUM.get(self.arch_name)
         arch_params = {k: v for k, v in arch_dict.items() if k != "name"}
         dtype_name = str(arch_params.pop("compute_dtype", "float32"))
         if dtype_name not in _DTYPES:
@@ -51,20 +65,24 @@ class Segmentator:
         self.lr_fn = get_lr_schedule(scheduler_dict, float(optim_dict["lr"]))
         self.epoch = 0
 
-    def apply_train(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+    def apply_train(self, x: torch.Tensor, update_stats: bool = True,
+                    groups: int = 1, dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
         """Forward in train mode: BatchNorm normalises with the batch
         statistics and updates its running ones, unless ``update_stats`` is
-        False. Returns fp32 logits."""
+        False. ``groups`` = 2 runs the fused two-group forward: the batch is
+        two equal groups (labeled, then unlabeled), each normalised with its
+        own statistics, the running ones updated group by group
+        (``layers.BatchNorm``). ``dtype`` overrides ``compute_dtype`` for
+        this forward (dct_tpu's ``adv_dtype``). Returns fp32 logits."""
         self.net.train()
-        if update_stats:
-            return self.net(x.to(self.compute_dtype)).float()
         for m in self._batch_norms:
-            m.update_stats = False
+            m.update_stats, m.groups = update_stats, groups
         try:
-            return self.net(x.to(self.compute_dtype)).float()
+            return self.net(x.to(dtype or self.compute_dtype)).float()
         finally:
             for m in self._batch_norms:
-                m.update_stats = True
+                m.update_stats, m.groups = True, 1
 
     def apply_eval(self, x: torch.Tensor) -> torch.Tensor:
         """Forward in eval mode (running BatchNorm statistics)."""

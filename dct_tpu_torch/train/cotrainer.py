@@ -69,6 +69,8 @@ class CoTrainer:
                  seed: int = 1234,
                  nan_policy: str = "warn",
                  whole_config: Optional[dict] = None,
+                 fuse_forward: bool = True,
+                 adv_dtype: Optional[str] = None,
                  device=None) -> None:
         assert len(segmentators) == len(labeled_datasets)
         assert len(segmentators) >= 1
@@ -102,6 +104,10 @@ class CoTrainer:
                                    "max_value": 0.0})
         self.adv_training_dict = adv_training_dict or {}
         self.eps_fgsm = float(self.adv_training_dict.get("eplision", 0.03))
+        # the fused two-group forward (taken when train_jsd and B == Bu) and
+        # the FGSM segment's own dtype: Trainer.fuse_forward, Trainer.adv_dtype
+        self.fuse_forward = bool(fuse_forward)
+        self.adv_dtype = adv_dtype
 
         # one uint8 array on the device: the K labeled streams, then the
         # unlabeled one; a stream's batch indices are offset into it
@@ -132,7 +138,8 @@ class CoTrainer:
         """Train from ``start_epoch`` to ``max_epoch``; returns the CSV's rows."""
         epoch_fn = make_cotrain_epoch(
             self.segmentators, self.C, self.criterions["sup"], train_jsd,
-            train_adv, augment_labeled_data, augment_unlabeled_data, self.eps_fgsm)
+            train_adv, augment_labeled_data, augment_unlabeled_data, self.eps_fgsm,
+            fuse_forward=self.fuse_forward, adv_dtype=self.adv_dtype)
         records = resume_records(self.save_dir / self.metricname, self.start_epoch)
         self.writer = ScalarWriter(self.save_dir)
         try:

@@ -1,8 +1,9 @@
 """The supervised epoch (``dct_tpu/train/steps.py:make_supervised_epoch``),
-the K-model co-training epoch (``make_cotrain_epoch``, unfused forward),
-the per-patient eval steps (``make_eval_patient_step``,
-``make_eval_all_step``, ``make_eval_all_models_step``) and the ensemble
-evaluation (``make_summary_step``).
+the K-model co-training epoch (``make_cotrain_epoch``, with its fused
+two-group forward and ``adv_dtype``), the per-patient eval steps
+(``make_eval_patient_step``, ``make_eval_all_step``,
+``make_eval_all_models_step``) and the ensemble evaluation
+(``make_summary_step``).
 
 A supervised iteration gathers its batch, warps it (nearest, image and
 labels together) when augmenting, runs one train-mode forward, and steps
@@ -23,6 +24,17 @@ One iteration, in dct_tpu's order:
    b's own argmax — steps the input by ε·sign; model a forwards the result,
    scored by KL against b's detached prediction;
 5. backpropagate sup + λ_cot·JSD + λ_adv·KL once and step each model's Adam.
+
+With ``fuse_forward`` (the default, as in dct_tpu; taken when the JSD term
+is on, B == Bu and the arch has a BatchNorm momentum), steps 2 and 3 are
+one forward per model over its labeled batch stacked on the unlabeled one
+(2B images): the convolutions and the pool kernels run once over both,
+and BatchNorm normalises each half with its own statistics and updates
+the running ones labeled first, then unlabeled (``layers.BatchNorm``), so
+the result equals the unfused step's up to float reassociation.
+``adv_dtype`` runs the FGSM segment (the generation forward, its input
+gradient, the sign step and the adversarial forward) in its own dtype;
+the main pass keeps the arch's ``compute_dtype``.
 
 All forwards run BatchNorm in train mode, so running statistics update in
 dct_tpu's order: labeled per model, unlabeled, FGSM generation on model b,
@@ -46,7 +58,7 @@ from ..adversarial import fgsm
 from ..data.augment import augment_batch_with_thetas, sample_aug_thetas
 from ..data.pipeline import gather_augment_u8, normalize_gather
 from ..losses import jsd_2d, kl_div_2d
-from ..models.segmentator import Segmentator
+from ..models.segmentator import Segmentator, as_dtype
 from ..optim import set_lr
 from ..utils.general import class2one_hot, dice_coef, probs2one_hot
 
@@ -102,7 +114,8 @@ def make_supervised_epoch(seg: Segmentator, loss_fn: Callable, C: int,
 def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
                        sup_loss: Callable, train_jsd: bool, train_adv: bool,
                        augment_labeled: bool, augment_unlabeled: bool,
-                       eps_fgsm: float = 0.03) -> Callable:
+                       eps_fgsm: float = 0.03, fuse_forward: bool = True,
+                       adv_dtype=None) -> Callable:
     """Build the co-training epoch over the K models ``segs``.
 
     ``epoch(img_u8, gt_u8, idx_lab (T,K,B), idx_unlab (T,Bu), pairs (T,2)
@@ -111,9 +124,13 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
     adv_loss (T,), lab_dice (T,K,B,C), unlab_dice (T,K,Bu,C)} as tensors on
     the device. ``pairs`` (host ints) picks (a, b) per iteration for K>2.
     ``thetas`` (T, K·B+Bu, 2, 3), when given, replaces the augmentation
-    draws from ``generator``.
+    draws from ``generator``. ``fuse_forward`` and ``adv_dtype`` (a dtype
+    or its name) are dct_tpu's, as the module docstring says.
     """
     K = len(segs)
+    adv_dtype = as_dtype(adv_dtype)
+    if adv_dtype == segs[0].compute_dtype:
+        adv_dtype = None
 
     def one_step(img_u8, gt_u8, idx_l, idx_u, pair, generator, lam_cot,
                  lam_adv, th) -> Dict[str, torch.Tensor]:
@@ -132,17 +149,26 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
         lab_gt = gt_all[:K * B].reshape((K, B) + gt_all.shape[1:])
         unlab_img, unlab_gt = img_all[K * B:], gt_all[K * B:]
 
-        # (1) supervised, per model on its own labeled batch
-        lab_logits = [segs[k].apply_train(lab_img[k]) for k in range(K)]
+        zero = torch.zeros((), device=img_all.device)
+        jsd_loss, adv_loss, unlab_logits = zero, zero, None
+        if train_jsd and fused(B, Bu):
+            # (1)+(2) fused: one two-group forward per model over its
+            # labeled batch stacked on the unlabeled one
+            both = [s.apply_train(torch.cat([lab_img[k], unlab_img]), groups=2)
+                    for k, s in enumerate(segs)]
+            lab_logits = [lg[:B] for lg in both]
+            unlab_logits = [lg[B:] for lg in both]
+        else:
+            # (1) supervised, per model on its own labeled batch
+            lab_logits = [segs[k].apply_train(lab_img[k]) for k in range(K)]
+            if train_jsd:
+                # (2) the unlabeled batch through every model
+                unlab_logits = [s.apply_train(unlab_img) for s in segs]
         sup_each = torch.stack([sup_loss(lab_logits[k], lab_gt[k])
                                 for k in range(K)])
         total = sup_each.sum()
-
-        zero = torch.zeros((), device=img_all.device)
-        jsd_loss, adv_loss, unlab_logits = zero, zero, None
         if train_jsd:
-            # (2) JSD across models on the shared unlabeled batch
-            unlab_logits = [s.apply_train(unlab_img) for s in segs]
+            # JSD across models on the shared unlabeled batch
             probs = torch.stack([torch.softmax(lg, dim=-1) for lg in unlab_logits])
             jsd_loss = jsd_2d(probs).mean()
             total = total + lam_cot * jsd_loss
@@ -151,9 +177,9 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
             a, b = (0, 1) if K == 2 else (int(pair[0]), int(pair[1]))
             adv_img, _, real_probs = fgsm(
                 segs[b], torch.cat([lab_img[b], unlab_img], dim=0), lab_gt[b],
-                sup_loss, eps_fgsm)
-            adv_probs = torch.softmax(segs[a].apply_train(adv_img), dim=-1)
-            adv_loss = kl_div_2d(adv_probs, real_probs).mean()
+                sup_loss, eps_fgsm, dtype=adv_dtype)
+            adv_logits = segs[a].apply_train(adv_img, dtype=adv_dtype)
+            adv_loss = kl_div_2d(torch.softmax(adv_logits, dim=-1), real_probs).mean()
             total = total + lam_adv * adv_loss
 
         for s in segs:
@@ -172,6 +198,10 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
         return {"sup_loss": sup_each.detach(), "jsd_loss": jsd_loss.detach(),
                 "adv_loss": adv_loss.detach(), "lab_dice": lab_dice,
                 "unlab_dice": unlab_dice}
+
+    def fused(B: int, Bu: int) -> bool:
+        """dct_tpu's condition for the two-group forward."""
+        return fuse_forward and B == Bu and all(s.bn_momentum is not None for s in segs)
 
     def epoch(img_u8: torch.Tensor, gt_u8: torch.Tensor, idx_lab, idx_unlab,
               pairs, generator: Optional[torch.Generator], lr: float,

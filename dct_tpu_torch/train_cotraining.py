@@ -5,14 +5,15 @@
         StartTraining.train_jsd=True StartTraining.train_adv=True
 
 It reads dct_tpu's YAML configs unchanged. ``--device`` defaults to the
-card and raises without one; ``--device cpu`` runs on the CPU. Config keys
-of dct_tpu this port does not carry: ``Trainer.fuse_forward`` is accepted
-and runs the unfused step, which dct_tpu pins equal to the fused one up to
-reassociation (``tests/test_step_semantics.py::
-test_fuse_forward_matches_unfused``); a non-null ``Trainer.adv_dtype`` and
-``Trainer.parallel`` raise; ``Trainer.iters_per_dispatch`` must divide
-``iters_per_epoch`` as in dct_tpu and changes nothing else, since the port
-dispatches per iteration; ``Trainer.device`` is ignored, as in dct_tpu.
+card and raises without one; ``--device cpu`` runs on the CPU.
+``Trainer.fuse_forward`` (default True) runs the labeled and unlabeled
+forwards as one two-group forward per model when ``train_jsd`` and B == Bu,
+as dct_tpu does; ``Trainer.adv_dtype`` (``float32`` or ``bfloat16``) runs
+the FGSM segment in its own dtype. Config keys of dct_tpu this port does
+not carry: ``Trainer.parallel`` raises; ``Trainer.iters_per_dispatch``
+must divide ``iters_per_epoch`` as in dct_tpu and changes nothing else,
+since the port dispatches per iteration; ``Trainer.device`` is ignored, as
+in dct_tpu.
 
 Precision: the CLI keeps PyTorch's defaults. With ``Arch.compute_dtype:
 float32`` (the configs' setting) cuDNN convolutions run in TF32
@@ -35,10 +36,6 @@ DEFAULT_CONFIG = "configs/acdc_cotraining.yaml"
 
 def check_trainer_config(trainer_cfg) -> None:
     """Reject the Trainer keys of dct_tpu this port does not run."""
-    if trainer_cfg.get("adv_dtype") is not None:
-        raise NotImplementedError(
-            "Trainer.adv_dtype is not ported yet (ROADMAP item 9, with the "
-            "fused forward)")
     reject_parallel(trainer_cfg)
     per = trainer_cfg.get("iters_per_dispatch")
     iters = int(trainer_cfg.get("iters_per_epoch", ITERS_PER_EPOCH))
@@ -81,6 +78,8 @@ def main(argv=None) -> CoTrainer:
         seed=seed,
         nan_policy=trainer_cfg.get("nan_policy", "warn"),
         whole_config=config,
+        fuse_forward=bool(trainer_cfg.get("fuse_forward", True)),
+        adv_dtype=trainer_cfg.get("adv_dtype"),
         device=device,
     )
     cotrainer.start_training(**config["StartTraining"])

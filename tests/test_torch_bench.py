@@ -88,3 +88,13 @@ def test_bf16_peak_is_known_only_for_named_cards():
     with pytest.raises(KeyError, match="no dense bf16 peak"):
         bench.bf16_peak_flops("NVIDIA H100 PCIe")
 
+
+
+def test_bench_runs_the_unfused_step_too(result):
+    """``fuse_forward=False``: the unfused step, for a comparison in one
+    process; the default is the fused step bench.py runs."""
+    assert result["fuse_forward"] is True
+    unfused = bench.run(**{**SMALL, "N": 8, "H": 16, "T": 1, "windows": 1}, fuse_forward=False)
+    assert unfused["fuse_forward"] is False and unfused["value"] > 0
+    assert unfused["launches"] == dict.fromkeys(pool_kernels.KERNELS, 0)
+    assert bench.LAUNCHES_PER_ITERATION_UNFUSED == 12 and bench.LAUNCHES_PER_ITERATION == 8

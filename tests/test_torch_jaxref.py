@@ -128,8 +128,8 @@ def stats_error(ref, got):
                for k in ref if "running" in k)
 
 
-def float64_logits(jax_seg, port_seg):
-    """Leave both Segmentators' train-mode logits in float64 (each casts
+def float64_logits(jax_seg, *port_segs):
+    """Leave the Segmentators' train-mode logits in float64 (each casts
     them to fp32, as shipped). VAT needs it to be compared closely: its
     power iteration moves the logits by ~1e-8 of themselves, below fp32's
     resolution, so with fp32 logits its gradient carries each framework's
@@ -144,15 +144,18 @@ def float64_logits(jax_seg, port_seg):
         return out, jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
                                            mut["batch_stats"])
 
-    def port_apply_train(x, update_stats=True):
-        port_seg.net.train()
-        for m in port_seg._batch_norms:
-            m.update_stats = update_stats
-        try:
-            return port_seg.net(x.to(torch.float64))
-        finally:
+    def port_apply_train(port_seg):
+        def apply_train(x, update_stats=True, groups=1, dtype=None):
+            port_seg.net.train()
             for m in port_seg._batch_norms:
-                m.update_stats = True
+                m.update_stats, m.groups = update_stats, groups
+            try:
+                return port_seg.net(x.to(dtype or torch.float64))
+            finally:
+                for m in port_seg._batch_norms:
+                    m.update_stats, m.groups = True, 1
+        return apply_train
 
     jax_seg.apply_train = jax_apply_train
-    port_seg.apply_train = port_apply_train
+    for port_seg in port_segs:
+        port_seg.apply_train = port_apply_train(port_seg)

@@ -111,7 +111,7 @@ def torch_run(jax_run):
         s.net.load_state_dict(sd)
         s.compute_dtype = torch.float64     # the network arithmetic only
     epoch = make_cotrain_epoch(segs, C, get_loss_fn("cross_entropy"),
-                               True, True, True, True, 0.03)
+                               True, True, True, True, 0.03, fuse_forward=False)
     metrics = epoch(torch.from_numpy(jax_run["img"]), torch.from_numpy(jax_run["gt"]),
                     jax_run["idx_lab"], jax_run["idx_unlab"], None, None, LR,
                     0.5, 0.05, thetas=torch.from_numpy(jax_run["thetas"]))

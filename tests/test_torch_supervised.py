@@ -175,6 +175,6 @@ def test_batch_indices_equal_dct_tpus(tree, tmp_path):
 
 
 def test_cli_rejects_parallel(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         main(cli_args(tree, tmp_path, "Trainer.max_epoch=1", "Trainer.parallel=auto"))
     assert not Path(tmp_path, "metrics.csv").exists()

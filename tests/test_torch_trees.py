@@ -12,6 +12,9 @@ ACDC's; the stems follow each dataset's slicer:
 * GM: ``siteN-scNN-image_S`` (``(site\\d-sc\\d\\d)-image_\\d+``), the
   labeled sites under ``train`` and an ``unlabeled`` folder, each with the
   ``img`` and ``gt`` subfolders the dataset reads.
+
+``write_city_tree`` writes a Cityscapes tree instead (``leftImg8bit`` RGB
+and ``gtFine`` raw label ids, void ids included), for the Cityscapes tests.
 """
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -70,3 +73,38 @@ def gm_layout(subjects: Dict[int, Iterable[int]], unlabeled: Dict[int, Iterable[
         return [f"site{site}-sc{sc:02d}-image_{s}" for site, scs in by_site.items()
                 for sc in scs for s in range(slices)]
     return {"train": stems(subjects), "unlabeled": stems(unlabeled)}
+
+
+# raw Cityscapes label ids the synthetic scenes use: road, sidewalk,
+# building, vegetation, sky, person, car, bicycle, and the void ids 0, 1, 4
+CITY_RAW_IDS = [7, 8, 11, 21, 23, 24, 26, 33, 0, 1, 4]
+
+
+def write_city_tree(root: Path, cities=("aachen", "bochum", "bremen"),
+                    counts=None, size=(40, 88), seed: int = 0) -> Path:
+    """root/leftImg8bit/<mode>/<city>/<stem>_leftImg8bit.png and
+    root/gtFine/<mode>/<city>/<stem>_gtFine_labelIds.png at ``size`` (H, W):
+    horizontal bands of raw ids with a disc of another id, and an RGB
+    rendering of them (one colour an id, plus noise). ``counts``: images a
+    city for each mode (default: train 4, val 2)."""
+    rs = np.random.RandomState(seed)
+    root = Path(root)
+    h, w = size
+    yy, xx = np.mgrid[0:h, 0:w]
+    palette = rs.randint(0, 256, (256, 3))
+    for mode, n in (counts or {"train": 4, "val": 2}).items():
+        for city in cities:
+            img_dir = root / "leftImg8bit" / mode / city
+            gt_dir = root / "gtFine" / mode / city
+            img_dir.mkdir(parents=True, exist_ok=True)
+            gt_dir.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                bands = rs.choice(CITY_RAW_IDS, 4)
+                raw = bands[np.minimum(yy * 4 // h + (xx * rs.randint(0, 3) // w), 3)]
+                cy, cx, r = rs.randint(0, h), rs.randint(0, w), rs.randint(h // 6, h // 3)
+                raw[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rs.choice(CITY_RAW_IDS)
+                img = (palette[raw] + rs.randn(h, w, 3) * 20).clip(0, 255)
+                stem = f"{city}_{i:06d}_000019"
+                Image.fromarray(img.astype(np.uint8)).save(img_dir / f"{stem}_leftImg8bit.png")
+                Image.fromarray(raw.astype(np.uint8)).save(gt_dir / f"{stem}_gtFine_labelIds.png")
+    return root
