@@ -123,6 +123,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    from the run's last weights, on the card (TF32 off) against float64 on
    the CPU (``check_city_iteration`` states the tolerances).
 
+10. The architectures, losses, optimizers and LR schedules of slice 8, each
+   CLI through its entry point with dotted overrides of a shipped config:
+   (a) ``train_sup`` with ``unet_bn``, SGD with Nesterov momentum 0.9 and
+   CosineAnnealingLR on phase 6's supervised tree (256², batch 4) for 1
+   epoch, then a resume to 2 that must start from the momentum trace the
+   first epoch saved (dropout live); (b) ``train_sup`` with ``fcn8``,
+   RMSprop (lr 1e-5: optax's ν starts at 0, so the first steps are ±10·lr
+   an element), PolynomialLR and ``partial_ce``, 1 epoch; (c)
+   ``train_cotraining`` with ``segnet``, AdamW and MultiStepLR, JSD and
+   FGSM on (the fused two-group forward), on phase 5's tree, 1 epoch of
+   20 iterations and a resume to 2 (AdamW's count 20 → 40); then one
+   iteration of two SegNets at λ_cot 0.5 and λ_adv 0.05 from that run's
+   weights, on the card (TF32 off) against float64 on the CPU (B = Bu = 2,
+   the same thetas); (d) ``train_cotraining`` with ``unet`` raises the
+   missing-dropout-generator error, as dct_tpu raises; each of seven
+   optimizer settings takes 12 steps on ``unet_bn``'s 31 M parameters on
+   the card within 1e-5 of a float64 CPU run. The pool kernels launch 0
+   times on these paths. Each CLI epoch prints ``t_train``, ``t_eval``,
+   seconds an iteration, images/s and peak device memory.
+
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
 no CUDA device is present or the ``dct_tpu_torch`` package is not beside it.
@@ -186,6 +206,7 @@ REPLACES = {
 }
 SOURCE = "dct_tpu_torch/csrc/pool_mask.cu"
 OUT_DIR = Path("chiprun_out")
+CARD = "cuda"                  # the device of phase 10's card-side runs
 
 
 def emit(obj: dict) -> None:
@@ -622,6 +643,8 @@ def main() -> int:
     done("phase 8")
     city = run_city(torch, pk, card)
     done("phase 9")
+    slice8 = run_slice8(torch, pk, card, cli["tree"])
+    done("phase 10")
 
     kernels = []
     main_path = {where for _, where in POOL_SHAPES + UNPOOL_SHAPES}
@@ -648,7 +671,8 @@ def main() -> int:
             "launches_per_iteration": {k: v[name] for k, v in per_iteration.items()},
             "launches_summary": {k: v[name] for k, v in summary_launches.items()},
             "launches_spleen_512": {k: v[name] for k, v in spleen.items()},
-            "launches_city": {k: v[name] for k, v in city.items()}})
+            "launches_city": {k: v[name] for k, v in city.items()},
+            "launches_slice8": {k: v[name] for k, v in slice8.items()}})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
@@ -1654,6 +1678,262 @@ def check_city_iteration(torch, pk, trainer, run: Path) -> dict:
     print(f"phase 9: one co-training iteration at 256×512, λ_cot 1.0, λ_adv 0.005, flags "
           f"[FGSM, VAT], on the card (TF32 off) vs float64 on the CPU: {res}", flush=True)
     return launches
+
+
+# phase 10's CLI runs: (name, CLI module, config, tree ("sup": phase 6's,
+# else phase 5's), overrides, epochs of the first call, of the resume or None)
+SLICE8_RUNS = [
+    ("unet_bn_sgd", "train_sup", "configs/acdc_supervised.yaml", "sup",
+     ["Arch.name=unet_bn", "Optim.name=SGD", "Optim.momentum=0.9", "Optim.nesterov=True",
+      "Scheduler.name=CosineAnnealingLR", "Scheduler.T_max=100"], 1, 2),
+    ("fcn8_rmsprop", "train_sup", "configs/acdc_supervised.yaml", "sup",
+     ["Arch.name=fcn8", "Optim.name=RMSprop", "Optim.lr=1e-5", "Scheduler.name=PolynomialLR",
+      "Scheduler.max_epoch=100", "Loss.name=partial_ce"], 1, None),
+    ("segnet_adamw", "train_cotraining", "configs/acdc_cotraining.yaml", "main",
+     ["Arch.name=segnet", "Optim.name=AdamW", "Scheduler.name=MultiStepLR",
+      "Scheduler.milestones=[50,80]", "Trainer.iters_per_epoch=20",
+      "StartTraining.train_jsd=True", "StartTraining.train_adv=True"], 1, 2),
+]
+SLICE8_OPTIMIZERS = [
+    {"name": "SGD", "lr": 1e-2, "momentum": 0.9},
+    {"name": "SGD", "lr": 1e-2, "momentum": 0.9, "nesterov": True},
+    {"name": "AdamW", "lr": 1e-3},
+    {"name": "RMSprop", "lr": 1e-5},
+    {"name": "AdaBound", "lr": 1e-3},
+    {"name": "AdaBound", "lr": 1e-3, "amsbound": True},
+    {"name": "AdaBoundW", "lr": 1e-3},
+]
+
+
+def run_slice8(torch, pk, card: str, main_tree: Path) -> dict:
+    """Phase 10, as the module docstring says. Returns the launches of each
+    kernel on each new path (all 0)."""
+    import importlib
+    import shutil
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.train import CoTrainer, Trainer
+    from dct_tpu_torch.utils.convert import optim_state_to_jax
+
+    sup_tree = Path("build/acdc_synthetic_sup")
+    starts = {"train_sup": Trainer, "train_cotraining": CoTrainer}
+    originals = {c: c.start_training for c in starts.values()}
+    calls = []
+
+    def timed(cls):
+        def run(self, *args, **kwargs):
+            segs = getattr(self, "segmentators", None) or [self.segmentator]
+            calls.append({"optim_at_start": [optim_state_to_jax(s.optimizer, s.net,
+                                                                s.optim_dict) for s in segs]})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pk.reset_launch_counts()
+            t = time.perf_counter()
+            rows = originals[cls](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            calls[-1].update(wall=time.perf_counter() - t, launches=dict(pk.LAUNCHES),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            return rows
+        return run
+
+    for cls in starts.values():
+        cls.start_training = timed(cls)
+    launches = {}
+    try:
+        for name, module, config, tree_name, overrides, first, resume in SLICE8_RUNS:
+            tree = sup_tree if tree_name == "sup" else main_tree
+            run = Path(f"build/{name}_run")
+            shutil.rmtree(run, ignore_errors=True)
+            cli_main = importlib.import_module(f"dct_tpu_torch.{module}").main
+            common = (["--config", config, f"Dataset.root_dir={tree}",
+                       f"Trainer.save_dir={run}"] + overrides)
+            n0 = len(calls)
+            trainer = cli_main(common + [f"Trainer.max_epoch={first}"])
+            ckpt = run / ("last.ckpt" if module == "train_sup" else "")
+            saved = (load_checkpoint(ckpt)["segmentator"]["optim_state_dict"]
+                     if module == "train_sup" else None)
+            if resume:
+                trainer = cli_main(common + [f"Trainer.max_epoch={resume}",
+                                             f"Trainer.checkpoint={ckpt}"])
+            check_slice8_run(torch, name, run, calls[n0:], trainer, saved, card)
+            launches[name] = {k: sum(c["launches"][k] for c in calls[n0:]) for k in pk.KERNELS}
+            if name == "segnet_adamw":
+                check_segnet_iteration(torch, pk, trainer, run)
+            del trainer
+    finally:
+        for cls, start in originals.items():
+            cls.start_training = start
+    check_unet_cotraining_raises(main_tree)
+    check_optimizers(torch)
+    for name, n in launches.items():
+        if any(n.values()):
+            raise AssertionError(f"{name}: the pool kernels launched {n}, expected 0")
+    print(f"phase 10: pool-kernel launches on the new paths {launches}", flush=True)
+    return launches
+
+
+def check_slice8_run(torch, name, run, calls, trainer, saved, card) -> None:
+    """Finite CSV rows for every epoch, the checkpoints, the optimizer state
+    across the resume, and one ``cli_epoch`` line an epoch."""
+    rows = _csv_rows(run)
+    if [int(r["epoch"]) for r in rows] != list(range(len(calls))):
+        raise AssertionError(f"{name}: metrics.csv epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        for k, v in r.items():
+            if not math.isfinite(float(v)):
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v}")
+            if "dice" in k and not 0.0 <= float(v) <= 1.0:
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v} outside [0, 1]")
+    segs = getattr(trainer, "segmentators", None) or [trainer.segmentator]
+    if name == "unet_bn_sgd":
+        # the resume starts from the momentum trace epoch 0 saved
+        start, trace = calls[1]["optim_at_start"][0]["trace"], saved["trace"]
+        flat = list(zip(_tree_leaves(start), _tree_leaves(trace)))
+        if not flat or any(not np.array_equal(a, b) for a, b in flat) or not any(
+                np.any(b != 0) for _, b in flat):
+            raise AssertionError("unet_bn_sgd: the resume did not start from the saved "
+                                 "SGD momentum trace")
+    if name == "segnet_adamw":
+        counts = [int(c["optim_at_start"][0]["count"]) for c in calls]
+        steps = {int(st["step"]) for st in segs[0].optimizer.state.values()}
+        T = trainer.iters_per_epoch
+        if counts != [0, T] or steps != {2 * T} or not trainer.fuse_forward:
+            raise AssertionError(f"segnet_adamw: AdamW counts {counts} at the calls' starts, "
+                                 f"{steps} at the end, fused {trainer.fuse_forward}")
+    T = (trainer.iters_per_epoch if hasattr(trainer, "iters_per_epoch")
+         else len(trainer.train_set) // trainer.batch_size)
+    for epoch, (r, c) in enumerate(zip(rows, calls)):
+        t_train, t_eval = float(r["t_train"]), float(r["t_eval"])
+        emit({"cli": name, "cli_epoch": epoch, "t_train": t_train, "t_eval": t_eval,
+              "t_host": c["wall"] - t_train - t_eval, "iterations": T,
+              "s_per_iteration": t_train / T,
+              "images_per_sec": float(r["images_per_sec"]),
+              "peak_mem_gib": c["peak_gib"], "tf32_convs": torch.backends.cudnn.allow_tf32,
+              "card": card})
+    losses = {k: float(v) for k, v in rows[-1].items() if "loss" in k}
+    print(f"phase 10: {name}: {len(rows)} epochs of {T} iterations, last losses {losses}",
+          flush=True)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def check_segnet_iteration(torch, pk, trainer, run: Path) -> None:
+    """One fused co-training iteration of the run's two SegNets (its last
+    weights) at λ_cot 0.5, λ_adv 0.05, B = Bu = 2, the same indices and
+    thetas, on the card (fp32, TF32 off) and in float64 on the CPU. AdamW's
+    eps is 1e-3 on both sides (1e-8 would turn the exactly-zero gradients
+    of conv biases ahead of a BatchNorm, rounding noise on each side, into
+    ±lr steps). Fails unless the losses agree within 1e-4 relative (the
+    adversarial one 2e-3: FGSM's sign flips where the two input gradients
+    round apart), each update has cosine ≥ 0.99 to the float64 one, and the
+    statistics agree within 1e-3 of each leaf's scale."""
+    from dct_tpu_torch.data.augment import sample_aug_thetas
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.losses import get_loss_fn
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train.steps import make_cotrain_epoch
+    sds = [load_checkpoint(run / f"last_{s}.ckpt")["segmentator"] for s in range(2)]
+    for sd in sds:
+        sd["optim_dict"] = {**sd["optim_dict"], "eps": 1e-3}
+    rs = np.random.RandomState(12)
+    n = trainer._img_cat.shape[0]
+    B, (H, W) = 2, trainer._img_cat.shape[1:3]
+    idx_lab, idx_unlab = rs.randint(0, n, (1, 2, B)), rs.randint(0, n, (1, B))
+    thetas = sample_aug_thetas(torch.Generator().manual_seed(13), 3 * B, H, W)[None]
+    out = {}
+    for side, dtype in ((CARD, torch.float32), ("cpu", torch.float64)):
+        segs = [Segmentator.from_state_dict(sd, device=side, in_channels=1) for sd in sds]
+        for s in segs:
+            s.compute_dtype = dtype
+        initial = [{k: v.detach().cpu().double() for k, v in s.net.state_dict().items()}
+                   for s in segs]
+        epoch = make_cotrain_epoch(segs, 4, get_loss_fn("cross_entropy"), True, True, True,
+                                   True, 0.03)
+        with tf32_off(torch):
+            torch.cuda.synchronize()
+            m = epoch(trainer._img_cat.to(side), trainer._gt_cat.to(side), idx_lab, idx_unlab,
+                      None, None, 1e-3, 0.5, 0.05, thetas=thetas.to(side))
+            torch.cuda.synchronize()
+        out[side] = ({k: v.cpu().double() for k, v in m.items()}, initial,
+                     [{k: v.detach().cpu().double() for k, v in s.net.state_dict().items()}
+                      for s in segs])
+    (m_card, init, new_card), (m_ref, _, new_ref) = out[CARD], out["cpu"]
+    errs = {k: float(((m_card[k] - m_ref[k]).abs() / m_ref[k].abs()).max())
+            for k in ("sup_loss", "jsd_loss", "adv_loss")}
+    cos, stats = [], []
+    for s in range(2):
+        keys = [k for k in init[s] if "running" not in k]
+        upd = [torch.cat([(new[s][k] - init[s][k]).flatten() for k in keys])
+               for new in (new_card, new_ref)]
+        cos.append(float(torch.nn.functional.cosine_similarity(*upd, dim=0)))
+        stats.append(max(float((new_card[s][k] - new_ref[s][k]).abs().max())
+                         / max(1.0, float(new_ref[s][k].abs().max()))
+                         for k in init[s] if "running" in k))
+    res = {"loss_rel_err": errs, "update_cosine": cos, "stats_err": stats,
+           "losses_card": {k: m_card[k].flatten().tolist() for k in errs}}
+    if (errs["sup_loss"] > 1e-4 or errs["jsd_loss"] > 1e-4 or errs["adv_loss"] > 2e-3
+            or min(cos) < 0.99 or max(stats) > 1e-3):
+        raise AssertionError(f"SegNet iteration on the card vs float64: {res}")
+    print(f"phase 10: one SegNet co-training iteration at 256², B = Bu = 2, λ_cot 0.5, "
+          f"λ_adv 0.05, on the card (TF32 off) vs float64 on the CPU: {res}", flush=True)
+
+
+def check_unet_cotraining_raises(main_tree: Path) -> None:
+    """dct_tpu's co-training step passes no dropout RNG: flax raises for
+    UNet. The port raises too, at the first train-mode forward."""
+    from dct_tpu_torch.train_cotraining import main as cli_main
+    try:
+        cli_main(["--config", "configs/acdc_cotraining.yaml", f"Dataset.root_dir={main_tree}",
+                  "Trainer.save_dir=build/unet_cotraining_run", "Trainer.max_epoch=1",
+                  "Trainer.iters_per_epoch=1", "Arch.name=unet"])
+    except RuntimeError as e:
+        if "Dropout needs a generator" not in str(e):
+            raise
+        print(f"phase 10: train_cotraining with Arch.name=unet raises: {e}", flush=True)
+        return
+    raise AssertionError("train_cotraining with Arch.name=unet did not raise")
+
+
+def check_optimizers(torch) -> None:
+    """Each of ``SLICE8_OPTIMIZERS`` (weight decay 1e-4, the lr halved after
+    step 6) takes 12 steps over ``unet_bn``'s 31 M parameters with the same
+    seeded fp32 gradients, on the card in fp32 and on the CPU in float64:
+    every parameter within 1e-5 of its float64 value, relative to the
+    tensor's largest magnitude."""
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.optim import build_optimizer, set_lr
+    seg = Segmentator({"name": "unet_bn", "num_classes": 4}, {"name": "Adam", "lr": 1e-3},
+                      {"name": "StepLR", "step_size": 90}, torch.Generator().manual_seed(3),
+                      device="cpu", in_channels=1)
+    p0 = [p.detach().clone() for p in seg.net.parameters()]
+    gen = torch.Generator().manual_seed(4)
+    grads = [[torch.randn(p.shape, generator=gen) * (0.1 + t % 3) for p in p0]
+             for t in range(12)]
+    errs = {}
+    for cfg in SLICE8_OPTIMIZERS:
+        cfg = {**cfg, "weight_decay": 1e-4}
+        finals = []
+        for side, dtype in ((CARD, torch.float32), ("cpu", torch.float64)):
+            params = [torch.nn.Parameter(p.to(side, dtype, copy=True)) for p in p0]
+            opt = build_optimizer(cfg, params)
+            for t in range(12):
+                for p, g in zip(params, grads[t]):
+                    p.grad = g.to(side, dtype)
+                set_lr(opt, cfg["lr"] * (0.5 if t >= 6 else 1.0))
+                opt.step()
+            finals.append([p.detach().cpu().double() for p in params])
+        err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
+                  for a, b in zip(*finals))
+        key = cfg["name"] + "".join(f"_{k}" for k in ("nesterov", "amsbound") if cfg.get(k))
+        errs[key] = err
+        if err > 1e-5:
+            raise AssertionError(f"{key}: 12 steps on the card {err:.3g} from float64")
+    print(f"phase 10: 12 optimizer steps over unet_bn's parameters, card fp32 vs CPU "
+          f"float64 (largest error relative to each tensor's scale): {errs}", flush=True)
+    emit({"optimizers_card_vs_float64": errs})
 
 
 def profile_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, gen):

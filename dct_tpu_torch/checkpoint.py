@@ -7,10 +7,11 @@ package can rebuild a model from the file alone. Torch tensors are written
 as numpy arrays.
 
 :func:`load_checkpoint` unpickles numpy arrays and builtin containers, and
-reads the two optax classes of dct_tpu's Adam state, ``(EmptyState(),
-ScaleByAdamState(count, mu, nu))``, as stand-ins of this module's own
-without importing optax (``utils/convert.py:load_adam_state`` maps them
-onto torch's Adam). A pickle that names any other class raises
+reads the classes of dct_tpu's optimizer states, optax's ``EmptyState``,
+``ScaleByAdamState``, ``TraceState`` and ``ScaleByRmsState`` and
+dct_tpu's ``AdaBoundState``, as stand-ins of this module's own without
+importing optax or dct_tpu (``utils/convert.py:load_optim_state`` maps them
+onto the port's optimizers). A pickle that names any other class raises
 ``pickle.UnpicklingError`` instead of importing that class's package.
 """
 from __future__ import annotations
@@ -37,15 +38,43 @@ class EmptyState(NamedTuple):
 
 class ScaleByAdamState(NamedTuple):
     """Stands in for ``optax.ScaleByAdamState``: the step count and both
-    moments as flax parameter trees."""
+    moments as flax parameter trees (Adam, AdamW)."""
 
     count: Any
     mu: Any
     nu: Any
 
 
+class TraceState(NamedTuple):
+    """Stands in for ``optax.TraceState``: SGD's momentum trace."""
+
+    trace: Any
+
+
+class ScaleByRmsState(NamedTuple):
+    """Stands in for ``optax.ScaleByRmsState``: RMSprop's ν."""
+
+    nu: Any
+
+
+class AdaBoundState(NamedTuple):
+    """Stands in for ``dct_tpu.optim.AdaBoundState`` (AdaBound, AdaBoundW);
+    ``max_nu`` is None without ``amsbound``."""
+
+    count: Any
+    mu: Any
+    nu: Any
+    max_nu: Any
+
+
+# optax 0.2.6 pickles TraceState from optax.transforms._accumulation, older
+# optax from optax._src.transform
 _OPTAX = {("optax._src.base", "EmptyState"): EmptyState,
-          ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState}
+          ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
+          ("optax.transforms._accumulation", "TraceState"): TraceState,
+          ("optax._src.transform", "TraceState"): TraceState,
+          ("optax._src.transform", "ScaleByRmsState"): ScaleByRmsState,
+          ("dct_tpu.optim", "AdaBoundState"): AdaBoundState}
 
 
 def _to_numpy(tree: Any) -> Any:
@@ -77,7 +106,7 @@ class _NumpyUnpickler(pickle.Unpickler):
         if (canonical, name) not in _ALLOWED:
             raise pickle.UnpicklingError(
                 f"checkpoint names {module}.{name}; only numpy arrays, "
-                "builtin containers and optax's Adam state are read")
+                "builtin containers and dct_tpu's optimizer states are read")
         for mod in dict.fromkeys((module, canonical,
                                   canonical.replace("numpy.core", "numpy._core", 1))):
             try:

@@ -29,12 +29,15 @@ def parse_args(argv: Optional[List[str]], default_config: str
 
 
 def build_segmentators(config: Dict[str, Any], generator: torch.Generator,
-                       device, n: int) -> List[Segmentator]:
+                       device, n: int, in_channels: int = 1) -> List[Segmentator]:
     """``n`` Segmentators from one Arch/Optim/Scheduler block, each
-    initialised from its own seed drawn from ``generator``."""
+    initialised from its own seed drawn from ``generator``, for data of
+    ``in_channels`` channels (1 for the medical sets, 3 for Cityscapes, as
+    dct_tpu's CLIs initialise on)."""
     seeds = torch.randint(0, 2**62, (n,), generator=generator).tolist()
     return [Segmentator(config["Arch"], config["Optim"], config["Scheduler"],
-                        torch.Generator().manual_seed(s), device=device)
+                        torch.Generator().manual_seed(s), device=device,
+                        in_channels=in_channels)
             for s in seeds]
 
 

@@ -104,6 +104,69 @@ class BatchNorm(nn.Module):
         return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(rate)`` in train mode: an element-wise Bernoulli
+    keep mask, ``where(keep, x / keep_prob, 0)``; identity in eval mode.
+
+    The mask is drawn from ``generator``, which the Segmentator sets for one
+    train-mode forward (``apply_train(dropout_generator=...)``); a
+    train-mode forward without one raises, as flax raises without a
+    "dropout" RNG. ``keep_mask``, when set, is used instead of a draw: a
+    bool tensor of the activation's NHWC shape (dct_tpu's layout), the way
+    tests hand both frameworks the same masks."""
+
+    def __init__(self, rate: float = 0.5) -> None:
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+        self.keep_mask = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        keep_prob = 1.0 - self.rate
+        if self.keep_mask is not None:
+            keep = self.keep_mask.to(x.device).permute(0, 3, 1, 2)
+        elif self.generator is None:
+            raise RuntimeError(
+                "Dropout needs a generator for 'dropout' in train mode (dct_tpu "
+                "passes a dropout RNG only in the supervised step and the "
+                "Mean-Teacher student)")
+        else:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)
+
+
+def remat(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``stage(x)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``; dct_tpu's ``nn.remat``): the same outputs
+    and gradients. The recomputation normalises with the batch statistics
+    and the groups of the first pass and leaves the running statistics as
+    that pass left them."""
+    from torch.utils.checkpoint import checkpoint
+
+    bns = [m for m in stage.modules() if isinstance(m, BatchNorm)]
+    first = [(m.update_stats, m.groups) for m in bns]
+    calls = []
+
+    def run(h):
+        if not calls:
+            calls.append(1)
+            return stage(h)
+        saved = [(m.update_stats, m.groups) for m in bns]
+        for m, (_, groups) in zip(bns, first):
+            m.update_stats, m.groups = False, groups
+        try:
+            return stage(h)
+        finally:
+            for m, st in zip(bns, saved):
+                m.update_stats, m.groups = st
+
+    if not torch.is_grad_enabled():
+        return stage(x)
+    return checkpoint(run, x, use_reentrant=False)
+
+
 @torch.no_grad()
 def init_weights_(net: nn.Module, generator: torch.Generator) -> None:
     """dct_tpu's init: xavier-normal conv kernels, zero conv biases, BN scale

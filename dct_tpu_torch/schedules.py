@@ -1,8 +1,9 @@
 """Loss-weight ramps and epoch-indexed LR schedules (``dct_tpu/schedules.py``).
 
 Each is a pure function of the epoch index, read on the host and passed to
-the training step as a number. Ported: the three loss-weight schedulers
-and StepLR; the other LR schedules come in a later slice.
+the training step as a number: the three loss-weight schedulers and the
+six LR schedules dct_tpu names (StepLR, MultiStepLR, ExponentialLR,
+CosineAnnealingLR, PolynomialLR, ConstantLR), each stepped once an epoch.
 """
 from __future__ import annotations
 
@@ -115,12 +116,57 @@ def step_lr(base_lr: float, step_size: int, gamma: float = 0.1):
     return lr
 
 
+def multi_step_lr(base_lr: float, milestones, gamma: float = 0.1):
+    milestones = sorted(int(m) for m in milestones)
+
+    def lr(epoch: int) -> float:
+        return base_lr * gamma ** sum(1 for m in milestones if epoch >= m)
+    return lr
+
+
+def exponential_lr(base_lr: float, gamma: float):
+    def lr(epoch: int) -> float:
+        return base_lr * gamma ** epoch
+    return lr
+
+
+def cosine_annealing_lr(base_lr: float, T_max: int, eta_min: float = 0.0):
+    def lr(epoch: int) -> float:
+        return eta_min + (base_lr - eta_min) * (1 + math.cos(math.pi * epoch / T_max)) / 2
+    return lr
+
+
+def polynomial_lr(base_lr: float, max_epoch: int, power: float = 0.9):
+    def lr(epoch: int) -> float:
+        return base_lr * max(1.0 - epoch / max_epoch, 0.0) ** power
+    return lr
+
+
+def constant_lr(base_lr: float):
+    def lr(epoch: int) -> float:
+        return base_lr
+    return lr
+
+
+_LR_BUILDERS = {
+    "StepLR": lambda base_lr, step_size, gamma=0.1, **_: step_lr(
+        base_lr, int(step_size), float(gamma)),
+    "MultiStepLR": lambda base_lr, milestones, gamma=0.1, **_: multi_step_lr(
+        base_lr, milestones, float(gamma)),
+    "ExponentialLR": lambda base_lr, gamma, **_: exponential_lr(base_lr, float(gamma)),
+    "CosineAnnealingLR": lambda base_lr, T_max, eta_min=0.0, **_: cosine_annealing_lr(
+        base_lr, T_max, float(eta_min)),
+    "PolynomialLR": lambda base_lr, max_epoch, power=0.9, **_: polynomial_lr(
+        base_lr, max_epoch, float(power)),
+    "ConstantLR": lambda base_lr, **_: constant_lr(base_lr),
+}
+
+
 def get_lr_schedule(scheduler_dict: Dict[str, Any], base_lr: float):
-    """lr(epoch) from a Scheduler config block."""
+    """lr(epoch) from a Scheduler config block; keys a schedule does not
+    take are ignored, as in dct_tpu."""
     name = scheduler_dict["name"]
-    if name != "StepLR":
-        raise NotImplementedError(
-            f"LR scheduler {name!r} is not ported yet (a later slice); only "
-            "'StepLR' is available")
-    return step_lr(base_lr, int(scheduler_dict["step_size"]),
-                   float(scheduler_dict.get("gamma", 0.1)))
+    kwargs = {k: v for k, v in scheduler_dict.items() if k != "name"}
+    if name not in _LR_BUILDERS:
+        raise KeyError(f"unknown LR scheduler {name!r}; available: {sorted(_LR_BUILDERS)}")
+    return _LR_BUILDERS[name](base_lr=base_lr, **kwargs)

@@ -144,7 +144,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict]:
     for p in ckpts:
         sd = load_checkpoint(p)["segmentator"]
         sd.setdefault("scheduler_state_dict", {"epoch": 0})
-        segs.append(Segmentator.from_state_dict(sd, device=device))
+        segs.append(Segmentator.from_state_dict(sd, device=device, in_channels=1))
     C = int(segs[0].arch_dict["num_classes"])
     K = len(segs)
 

@@ -37,7 +37,7 @@ from ..data.pipeline import DeviceDataset, InfiniteBatcher, PatientBuckets
 from ..models.segmentator import Segmentator
 from ..optim import build_optimizer
 from ..schedules import get_weight_scheduler
-from ..utils.convert import load_adam_state, stack_adam_states, unstack_adam_state
+from ..utils.convert import load_optim_state, stack_optim_states, unstack_optim_state
 from ..utils.general import check_finite_losses, save_images
 from ..utils.logging import ScalarWriter, resume_records, write_metrics_csv
 from .steps import (make_cotrain_epoch, make_eval_all_models_step,
@@ -300,13 +300,14 @@ class CoTrainer:
 
     def checkpoint(self, metric: np.ndarray, epoch: int) -> None:
         """Per-model best/last checkpoints in dct_tpu's payload layout, and
-        every model's Adam state, stacked over K in dct_tpu's tree layout,
-        in ``opt_state.ckpt``. Called after the epoch's scheduler step, so
-        each Segmentator's epoch is ``epoch + 1``."""
-        adam_states = []
+        every model's optimizer state, stacked over K in dct_tpu's tree
+        layout (flat with ``Optim.fused``), in ``opt_state.ckpt``. Called
+        after the epoch's scheduler step, so each Segmentator's epoch is
+        ``epoch + 1``."""
+        opt_states = []
         for i, seg in enumerate(self.segmentators):
             seg_sd = seg.state_dict
-            adam_states.append(seg_sd.pop("optim_state_dict"))
+            opt_states.append(seg_sd.pop("optim_state_dict"))
             payload = {"segmentator": seg_sd,
                        "best_score": float(self.best_scores[i]),
                        "best_epoch": epoch,
@@ -318,7 +319,9 @@ class CoTrainer:
                 payload = {**payload, "best_score": float(metric[i])}
                 save_checkpoint(self.save_dir / f"best_{i}.ckpt", payload)
         save_checkpoint(self.save_dir / "opt_state.ckpt",
-                        {"opt_state": stack_adam_states(adam_states)})
+                        {"opt_state": stack_optim_states(
+                            opt_states, self.segmentators[0].net,
+                            self.segmentators[0].optim_dict)})
 
     def _load_checkpoint(self, checkpoint_dir: str) -> None:
         paths = sorted(Path(checkpoint_dir).glob("last_*.ckpt"))
@@ -336,14 +339,18 @@ class CoTrainer:
         if not opt_path.exists():
             return
         try:
-            states = unstack_adam_state(load_checkpoint(opt_path)["opt_state"], self.K)
+            seg0 = self.segmentators[0]
+            states = unstack_optim_state(load_checkpoint(opt_path)["opt_state"], self.K,
+                                         seg0.net, seg0.optim_dict)
+            per_leaf = {**seg0.optim_dict, "fused": False}   # unstacked is per-leaf
             for seg, st in zip(self.segmentators, states):
-                load_adam_state(seg.optimizer, seg.net, st)
+                load_optim_state(seg.optimizer, seg.net, st, per_leaf)
         except (pickle.UnpicklingError, EOFError, KeyError, TypeError,
                 ValueError) as e:
-            # a truncated file, or a state this bridge does not map (dct_tpu's
-            # ``fused`` flat state, another architecture): the optimizers
-            # start afresh, as dct_tpu does with an unreadable file
+            # a truncated file, or a state this bridge does not map (another
+            # optimizer or architecture, the fused layout under a per-leaf
+            # config or the reverse): the optimizers start afresh, as
+            # dct_tpu does with an unreadable file
             for seg in self.segmentators:
                 seg.optimizer = build_optimizer(seg.optim_dict, seg.net.parameters())
             print(f">>> opt_state.ckpt unreadable ({e}); reinitializing optimizer")

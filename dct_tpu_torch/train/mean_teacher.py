@@ -55,7 +55,7 @@ def make_mean_teacher_epoch(student: Segmentator, teacher: Segmentator,
     s_params = list(student.net.parameters())
     t_params = list(teacher.net.parameters())
 
-    def one_step(img_u8, gt_u8, idx_l, idx_u, generator, lam_con, th, th_u):
+    def one_step(img_u8, gt_u8, idx_l, idx_u, generator, t, lam_con, th, th_u):
         img_o, gt_o = normalize_gather(img_u8, gt_u8, idx_l)
         b, h, w = gt_o.shape
         if th is None:
@@ -73,9 +73,14 @@ def make_mean_teacher_epoch(student: Segmentator, teacher: Segmentator,
             tu_probs = torch.softmax(teacher.apply_train(u_img_o), dim=-1)
             tu_probs_aug = apply_thetas(tu_probs, th_u, "bilinear")
 
-        s_logits = student.apply_train(img_s)
+        # the student's dropout streams (dct_tpu's fold_in(k, 2) and (k, 3));
+        # the teacher's forwards pass none, so an arch with dropout raises
+        # there, as in dct_tpu
+        s_logits = student.apply_train(
+            img_s, dropout_generator=student.dropout_generator(generator, t, 2))
         sup = sup_loss(s_logits, gt_s)
-        su_logits = student.apply_train(u_img_s)
+        su_logits = student.apply_train(
+            u_img_s, dropout_generator=student.dropout_generator(generator, t, 3))
         con = (mse_probs(torch.softmax(s_logits, dim=-1), t_probs_aug)
                + mse_probs(torch.softmax(su_logits, dim=-1), tu_probs_aug))
         total = sup + lam_con * con
@@ -97,7 +102,7 @@ def make_mean_teacher_epoch(student: Segmentator, teacher: Segmentator,
         idx_lab = torch.as_tensor(np.asarray(idx_lab), device=dev).long()
         idx_unlab = torch.as_tensor(np.asarray(idx_unlab), device=dev).long()
         set_lr(student.optimizer, lr)
-        steps = [one_step(img_u8, gt_u8, idx_lab[t], idx_unlab[t], generator, lam_con,
+        steps = [one_step(img_u8, gt_u8, idx_lab[t], idx_unlab[t], generator, t, lam_con,
                           None if thetas is None else thetas[t].to(dev),
                           None if thetas_u is None else thetas_u[t].to(dev))
                  for t in range(idx_lab.shape[0])]
@@ -210,7 +215,7 @@ class MeanTeacherTrainer:
     def save_checkpoint(self, metric: float, epoch: int) -> None:
         """``last.ckpt`` every epoch and ``best_{metric:.4f}_{epoch}.ckpt``
         (replacing the previous ``best_*``) when the teacher's val 2D dice
-        improves; dct_tpu's payload: the student with its Adam state, the
+        improves; dct_tpu's payload: the student with its optimizer state, the
         teacher without one. Called after the epoch's scheduler step, so
         each Segmentator's epoch is ``epoch + 1``."""
         teacher = self.teacher.state_dict

@@ -6,8 +6,8 @@ two-group forward and ``adv_dtype``), the per-patient eval steps
 (``make_summary_step``).
 
 A supervised iteration gathers its batch, warps it (nearest, image and
-labels together) when augmenting, runs one train-mode forward, and steps
-Adam on the CE.
+labels together) when augmenting, runs one train-mode forward (with
+dropout, for an arch that has it), and steps the optimizer on the loss.
 
 One iteration, in dct_tpu's order:
 
@@ -85,7 +85,10 @@ def make_supervised_epoch(seg: Segmentator, loss_fn: Callable, C: int,
     """``epoch(img_u8, gt_u8, idx (T,B), generator, lr, thetas=None)`` trains
     ``seg`` in place and returns {loss (T,), dice (T,B,C)} on the device.
     ``thetas`` (T,B,2,3), when given, replaces the augmentation draws from
-    ``generator``."""
+    ``generator``. An arch with dropout draws step t's masks from a
+    generator seeded from ``generator``'s seed, t and 1 (dct_tpu's
+    ``fold_in(k, 1)``); the only one of the port's training steps that
+    passes one, with the Mean-Teacher student, as in dct_tpu."""
 
     def epoch(img_u8: torch.Tensor, gt_u8: torch.Tensor, idx,
               generator: Optional[torch.Generator], lr: float,
@@ -99,7 +102,8 @@ def make_supervised_epoch(seg: Segmentator, loss_fn: Callable, C: int,
                                             thetas=None if thetas is None else thetas[t])
             else:
                 img, gt = normalize_gather(img_u8, gt_u8, idx[t])
-            logits = seg.apply_train(img)
+            logits = seg.apply_train(
+                img, dropout_generator=seg.dropout_generator(generator, t, 1))
             loss = loss_fn(logits, gt)
             seg.optimizer.zero_grad(set_to_none=True)
             loss.backward()

@@ -7,7 +7,7 @@ draws them; augmentation draws from a torch generator seeded with
 ``fold_in(seed, epoch)``), then the per-patient val dice, one CSV row in
 dct_tpu's columns, the val/train dice histories as .npy, and ``last.ckpt``
 plus ``best.ckpt`` keyed on mean foreground 2D val dice. A checkpoint
-resumes the weights, Adam, the LR epoch and the best score.
+resumes the weights, the optimizer, the LR epoch and the best score.
 
 The helpers at the bottom are shared with the VAT and Mean-Teacher
 trainers.

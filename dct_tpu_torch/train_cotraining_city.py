@@ -38,7 +38,7 @@ def main(argv=None) -> CoTrainerCity:
 
     labeled, unlab, val = get_cityscapes_split(config)
     segs = build_segmentators(config, generator, device,
-                              int(config["Lab_Partitions"]["num_models"]))
+                              int(config["Lab_Partitions"]["num_models"]), in_channels=3)
     criterions = {"sup": supervised_loss(config), "jsd": get_loss_fn("jsd"),
                   "adv": get_loss_fn("jsd")}
     trainer = CoTrainerCity(

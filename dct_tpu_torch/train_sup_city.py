@@ -37,7 +37,7 @@ def main(argv=None) -> TrainerCity:
     subsample = int(ds_cfg.get("subsample", 20))
     train = CityscapesDataset(ds_cfg["root_dir"], "train", size, subsample)
     val = CityscapesDataset(ds_cfg["root_dir"], "val", size, subsample, quite=True)
-    (seg,) = build_segmentators(config, generator, device, 1)
+    (seg,) = build_segmentators(config, generator, device, 1, in_channels=3)
 
     trainer = TrainerCity(
         seg, train, train, val, supervised_loss(config),

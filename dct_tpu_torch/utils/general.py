@@ -29,6 +29,13 @@ def dice_coef(label: torch.Tensor, pred: torch.Tensor, smooth: float = 1e-8) -> 
     return (2.0 * inter + smooth) / (sums + smooth)
 
 
+def dice_batch(label: torch.Tensor, pred: torch.Tensor, smooth: float = 1e-8) -> torch.Tensor:
+    """3D (whole-batch) dice between one-hot (B,H,W,C) maps → (C,)."""
+    inter = torch.sum(label * pred, dim=(0, 1, 2)).float()
+    sums = (torch.sum(label, dim=(0, 1, 2)) + torch.sum(pred, dim=(0, 1, 2))).float()
+    return (2.0 * inter + smooth) / (sums + smooth)
+
+
 def fix_all_seed(seed: int) -> torch.Generator:
     """Seed ``random``, ``np.random`` and torch, and return a CPU
     ``torch.Generator`` seeded with ``seed`` (dct_tpu returns a root JAX

@@ -30,7 +30,7 @@ from dct_tpu_torch.checkpoint import load_checkpoint
 from dct_tpu_torch.models import Segmentator
 from dct_tpu_torch.optim import set_lr
 from dct_tpu_torch.train.steps import make_eval_all_step
-from dct_tpu_torch.utils.convert import load_adam_state, params_from_jax
+from dct_tpu_torch.utils.convert import load_optim_state, params_from_jax
 from test_torch_jaxref import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_jaxref import C, ROOT, jax_segmentator, rings, to_numpy
 
@@ -156,7 +156,7 @@ def test_one_adam_step_after_loading_matches_optax(rel, entry):
                       torch.Generator().manual_seed(0), device="cpu")
     seg.net.double()
     seg.net.load_state_dict(params_from_jax(port_sd["net_state_dict"], port_sd["batch_stats"]))
-    load_adam_state(seg.optimizer, seg.net, port_sd["optim_state_dict"])
+    load_optim_state(seg.optimizer, seg.net, port_sd["optim_state_dict"], seg.optim_dict)
     g = params_from_jax(grads, {})
     for name, p in seg.net.named_parameters():
         p.grad = g[name]

@@ -98,7 +98,7 @@ def test_segmentator_needs_cuda_or_explicit_cpu(no_cuda):
     x = torch.rand(1, 16, 16, 1)
     assert seg.apply_eval(x).shape == (1, 16, 16, 4)
     with pytest.raises(NotImplementedError, match="later slice"):
-        Segmentator({"name": "unet", "num_classes": 4}, *cfg[1:],
+        Segmentator({"name": "pspnet", "num_classes": 4}, *cfg[1:],
                     torch.Generator().manual_seed(0), device="cpu")
 
 

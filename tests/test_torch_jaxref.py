@@ -145,7 +145,7 @@ def float64_logits(jax_seg, *port_segs):
                                            mut["batch_stats"])
 
     def port_apply_train(port_seg):
-        def apply_train(x, update_stats=True, groups=1, dtype=None):
+        def apply_train(x, update_stats=True, groups=1, dtype=None, dropout_generator=None):
             port_seg.net.train()
             for m in port_seg._batch_norms:
                 m.update_stats, m.groups = update_stats, groups
