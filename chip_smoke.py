@@ -21,7 +21,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    batches of 4, FGSM's stacked 8, its 16-slice eval bucket); and at the
    Cityscapes configs' shapes (3-channel ENet, 16 channels at the outer
    bottlenecks: the co-training config's fused 8 images and batches of 4
-   at 256×512, the supervised config's batch of 4 at 512×1024). Then each
+   at 256×512, the supervised config's batch of 4 at 512×1024); and at
+   JEnet's (its pools of the raw 1-channel input at 256², of 16 channels
+   at 128² and of 64 at 64², its unpools' y of (32², 64) and (64², 16), at
+   the supervised batch of 4 and the 16-slice eval bucket). Then each
    is timed with CUDA events, at the ACDC main path's and at the Cityscapes
    co-training config's fused shapes, beside its byte
    bound, one PyTorch library call that computes the same function and a
@@ -143,6 +146,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    times on these paths. Each CLI epoch prints ``t_train``, ``t_eval``,
    seconds an iteration, images/s and peak device memory.
 
+11. The architectures of slice 9 at full width, through the CLIs with
+   dotted overrides: (a) ``train_cotraining_city`` on
+   ``configs/cityscapes_cotraining.yaml`` with ``Arch.name=deeplabv3plus``
+   (ResNet-101 (3, 4, 23, 3), output stride 8, 19 classes, 256×512, K = 2,
+   B = Bu = 4, the fused forward, the FGSM/VAT mix) on phase 9's tree, with
+   ``Trainer.coco_init_pth`` at a random DeepLabV2 .pth in the reference's
+   key layout written here (``build/coco_init/``): 1 epoch and a resume to
+   2; the trunk must load into both models (dct_tpu's "loaded N tensors"
+   line, the first kernel equal to the .pth's) and ASPP-v3 keep its init
+   (the shipped batch is halved only if it does not fit, and the script
+   says so); (b) ``train_sup`` with ``pspnet`` and with ``jenet`` on phase
+   6's supervised tree, 1 epoch each: JEnet launches pool_mask_fwd 3,
+   unpool_fwd 2, pool_mask_bwd 2 and unpool_bwd 2 times an iteration (its
+   input pool gets no gradient) and 3/2/0/0 an eval forward; (c)
+   ``train_cotraining`` with two ``cnet``s (fused) on phase 5's tree, 1
+   epoch of 20 iterations; (d) ``deeplabv2``, the MSC wrapper around it,
+   ``resnet18`` and ``vgg11`` at full depth on a 256² batch, on the card
+   (TF32 off) against float64 on the CPU; (e) one DeepLabV3+ Cityscapes
+   co-training iteration at the configs' λ maxima, FGSM one way and VAT
+   the other, on the card (TF32 off) against float64 on the CPU, cut to
+   ``n_blocks`` (1, 1, 1, 1) (full widths), 128×256 and B = Bu = 2 so that
+   the CPU side stays short. Every path but JEnet's launches no pool
+   kernel. Each CLI epoch prints ``t_train``, ``t_eval``, seconds an
+   iteration, images/s and peak device memory.
+
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
 no CUDA device is present or the ``dct_tpu_torch`` package is not beside it.
@@ -191,6 +219,12 @@ CITY_CHECK_POOL_SHAPES = [(4, 128, 256, 16), (4, 64, 128, 64),
                           (4, 256, 512, 16), (4, 128, 256, 64)]
 CITY_CHECK_UNPOOL_SHAPES = [(4, 32, 64, 64), (4, 64, 128, 16),
                             (4, 64, 128, 64), (4, 128, 256, 16)]
+# JEnet's (slice 9): its three pools, the first on the raw 1-channel input
+# (pack 1), and its two unpools (y), at the supervised batch of 4 and the
+# 16-slice eval bucket
+JENET_POOL_SHAPES = [(n, 256, 256, 1) for n in (4, EVAL_L)] + [
+    (n, h, h, c) for n in (4, EVAL_L) for h, c in ((128, 16), (64, 64))]
+JENET_UNPOOL_SHAPES = [(n, h, h, c) for n in (4, EVAL_L) for h, c in ((32, 64), (64, 16))]
 # full-resolution shapes (the pool's input, the unpool's mask and output)
 # whose spans are not whole 16-byte vectors (pooled w·c odd in the fourth;
 # the fifth runs channel pairs with a head and a tail); one pooled column of
@@ -352,10 +386,10 @@ def check_kernels(torch, pk, plain):
             check(torch, pk, plain, ints, RAGGED_POOL_SHAPES[1], dtype, errs,
                   offset=1)
         for shape in (EVAL_POOL_SHAPES + B4_POOL_SHAPES + SPLEEN_POOL_SHAPES
-                      + CITY_CHECK_POOL_SHAPES):
+                      + CITY_CHECK_POOL_SHAPES + JENET_POOL_SHAPES):
             check_pool_exact(torch, pk, plain, ints, shape, dtype, errs)
         for n, h, w, c in (EVAL_UNPOOL_SHAPES + B4_UNPOOL_SHAPES + SPLEEN_UNPOOL_SHAPES
-                           + CITY_CHECK_UNPOOL_SHAPES):
+                           + CITY_CHECK_UNPOOL_SHAPES + JENET_UNPOOL_SHAPES):
             check_unpool_exact(torch, pk, plain, ints, (n, 2 * h, 2 * w, c), dtype, errs)
         for shape, where in POOL_SHAPES + CITY_POOL_SHAPES:
             n, hh, ww, c = shape
@@ -589,6 +623,7 @@ def main() -> int:
           f"{EVAL_POOL_SHAPES} (pool) and {EVAL_UNPOOL_SHAPES} (unpool), at the "
           f"baselines' {B4_POOL_SHAPES} and {B4_UNPOOL_SHAPES}, at the spleen "
           f"config's 512² shapes {SPLEEN_POOL_SHAPES} (pool) and {SPLEEN_UNPOOL_SHAPES} "
+          f"(unpool), at JEnet's {JENET_POOL_SHAPES} (pool) and {JENET_UNPOOL_SHAPES} "
           f"(unpool), at ragged shapes {RAGGED_POOL_SHAPES} and off 16 bytes)", flush=True)
     emit({"kernel_detail": detail, "card": card})
     emit({"launch_floor_ms": launch_floor_ms(torch), "card": card})
@@ -645,6 +680,8 @@ def main() -> int:
     done("phase 9")
     slice8 = run_slice8(torch, pk, card, cli["tree"])
     done("phase 10")
+    slice9 = run_slice9(torch, pk, card, cli["tree"])
+    done("phase 11")
 
     kernels = []
     main_path = {where for _, where in POOL_SHAPES + UNPOOL_SHAPES}
@@ -672,7 +709,8 @@ def main() -> int:
             "launches_summary": {k: v[name] for k, v in summary_launches.items()},
             "launches_spleen_512": {k: v[name] for k, v in spleen.items()},
             "launches_city": {k: v[name] for k, v in city.items()},
-            "launches_slice8": {k: v[name] for k, v in slice8.items()}})
+            "launches_slice8": {k: v[name] for k, v in slice8.items()},
+            "launches_slice9": {k: v[name] for k, v in slice9.items()}})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
@@ -1934,6 +1972,397 @@ def check_optimizers(torch) -> None:
     print(f"phase 10: 12 optimizer steps over unet_bn's parameters, card fp32 vs CPU "
           f"float64 (largest error relative to each tensor's scale): {errs}", flush=True)
     emit({"optimizers_card_vs_float64": errs})
+
+
+# phase 11 (slice 9): the Cityscapes co-training CLI with DeepLabV3+ at
+# full depth, its COCO init written here in the reference's key layout;
+# its CLI overrides, the trunk depth of that init, the training CLIs of the
+# other new archs (name, CLI module, config, tree as in SLICE8_RUNS,
+# overrides, the kernels' launches a training iteration and an eval
+# forward), the side of the forward checks and the size of the λ > 0
+# DeepLabV3+ iteration (cut to n_blocks (1, 1, 1, 1) and 128×256 so that
+# its float64 side on the CPU stays short)
+SLICE9_CITY = ["Arch.name=deeplabv3plus"]
+SLICE9_COCO_BLOCKS = (3, 4, 23, 3)
+SLICE9_RUNS = [
+    ("pspnet_sup", "train_sup", "configs/acdc_supervised.yaml", "sup",
+     ["Arch.name=pspnet"], (0, 0, 0, 0), (0, 0, 0, 0)),
+    ("jenet_sup", "train_sup", "configs/acdc_supervised.yaml", "sup",
+     ["Arch.name=jenet"], (3, 2, 2, 2), (3, 2, 0, 0)),
+    ("cnet_cotraining", "train_cotraining", "configs/acdc_cotraining.yaml", "main",
+     ["Arch.name=cnet", "Trainer.iters_per_epoch=20", "StartTraining.train_jsd=True",
+      "StartTraining.train_adv=True"], (0, 0, 0, 0), (0, 0, 0, 0)),
+]
+SLICE9_FWD_SIDE = 256
+SLICE9_ITER = {"n_blocks": [1, 1, 1, 1], "grids": [1], "hw": (128, 256), "B": 2}
+
+
+class _Tee:
+    """sys.stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def write_coco_pth(torch, path: Path, n_blocks, seed: int = 6) -> dict:
+    """A random DeepLabV2 state_dict in the reference's key layout (``scale.``
+    prefixes, ``conv``/``bn`` pairs, ``aspp.stages``, ``num_batches_tracked``)
+    and a 21-class COCO-sized head, written with ``torch.save``; returns it."""
+    from dct_tpu_torch.models import get_arch
+    net = get_arch("deeplabv2", {"num_classes": 21, "n_blocks": list(n_blocks),
+                                 "in_channels": 3})
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, t in net.state_dict().items():
+        parts = key.split(".")
+        if parts[0] == "aspp":
+            name = f"aspp.stages.{parts[1]}.{parts[2]}"
+        else:
+            trunk = "layer1.conv1" if parts[1] == "layer1_conv1" else ".".join(parts[1:-2])
+            name = f"{trunk}.{'conv' if parts[-2] == 'Conv_0' else 'bn'}.{parts[-1]}"
+        v = torch.randn(t.shape, generator=gen) * (0.02 if t.dim() == 4 else 0.1)
+        if name.endswith("running_var"):
+            v = v.abs() + 1.0
+            sd["scale." + name.replace("running_var", "num_batches_tracked")] = torch.tensor(3)
+        elif name.endswith("bn.weight"):
+            v = v + 1.0
+        sd["scale." + name] = v
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path)
+    return sd
+
+
+def run_slice9(torch, pk, card: str, main_tree: Path) -> dict:
+    """Phase 11, as the module docstring says. Returns the launches of each
+    kernel on each path."""
+    import importlib
+    import shutil
+    from dct_tpu_torch import train_cotraining_city as city_cli
+    from dct_tpu_torch.train import CoTrainer, CoTrainerCity, Trainer
+    from dct_tpu_torch.train import trainer as trainer_mod
+
+    calls = []
+    evals = {"forwards": 0, **dict.fromkeys(pk.KERNELS, 0)}
+    originals = {c: c.start_training for c in (Trainer, CoTrainer, CoTrainerCity)}
+    eval_dice = trainer_mod.eval_dice
+
+    def counted_eval_dice(eval_all, val_dev, val_buckets):
+        before = dict(pk.LAUNCHES)
+        out = eval_dice(eval_all, val_dev, val_buckets)     # ends on the host
+        for k in pk.KERNELS:
+            evals[k] += pk.LAUNCHES[k] - before[k]
+        evals["forwards"] += len(val_buckets)
+        return out
+
+    def timed(cls):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            evals.update({"forwards": 0, **dict.fromkeys(pk.KERNELS, 0)})
+            pk.reset_launch_counts()
+            t = time.perf_counter()
+            rows = originals[cls](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append({"wall": time.perf_counter() - t, "launches": dict(pk.LAUNCHES),
+                          "eval": dict(evals),
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+            return rows
+        return run
+
+    for cls in originals:
+        cls.start_training = timed(cls)
+    trainer_mod.eval_dice = counted_eval_dice
+    launches = {}
+    try:
+        launches["deeplabv3plus_city"] = run_deeplab_city(torch, card, city_cli, calls)
+        sup_tree = Path("build/acdc_synthetic_sup")
+        for name, module, config, tree_name, overrides, per_iter, per_eval in SLICE9_RUNS:
+            tree = sup_tree if tree_name == "sup" else main_tree
+            run = Path(f"build/{name}_run")
+            shutil.rmtree(run, ignore_errors=True)
+            cli_main = importlib.import_module(f"dct_tpu_torch.{module}").main
+            n0 = len(calls)
+            trainer = cli_main(["--config", config, f"Dataset.root_dir={tree}",
+                                f"Trainer.save_dir={run}", "Trainer.max_epoch=1"] + overrides)
+            T = (trainer.iters_per_epoch if hasattr(trainer, "iters_per_epoch")
+                 else len(trainer.train_set) // trainer.batch_size)
+            check_slice9_run(torch, name, run, calls[n0:], T, per_iter, per_eval, card)
+            if name == "cnet_cotraining" and not trainer.fuse_forward:
+                raise AssertionError("cnet_cotraining: the fused forward did not run")
+            launches[name] = {k: sum(c["launches"][k] for c in calls[n0:]) for k in pk.KERNELS}
+            del trainer
+    finally:
+        for cls, start in originals.items():
+            cls.start_training = start
+        trainer_mod.eval_dice = eval_dice
+    check_slice9_forwards(torch)
+    launches["deeplabv3plus_iteration"] = check_deeplab_iteration(torch, pk)
+    for name, n in launches.items():
+        if name != "jenet_sup" and any(n.values()):
+            raise AssertionError(f"{name}: the pool kernels launched {n}, expected 0")
+    print(f"phase 11: pool-kernel launches on the new paths {launches}", flush=True)
+    return launches
+
+
+def run_deeplab_city(torch, card: str, city_cli, calls) -> dict:
+    """Phase 11 (a): ``train_cotraining_city`` on phase 9's tree with
+    DeepLabV3+ and ``Trainer.coco_init_pth`` at a random .pth written here,
+    one epoch and a resume to a second; the trunk must load into both
+    models (dct_tpu's line, and its first kernel equal to the .pth's) and
+    ASPP-v3 keep its init. The batch of the shipped config is halved only if
+    it does not fit on the card (the script says so)."""
+    import shutil
+    tree, run = Path("build/city_synthetic"), Path("build/deeplab_city_run")
+    pth = Path("build/coco_init/deeplabv2_coco.pth")
+    t0 = time.perf_counter()
+    ref = write_coco_pth(torch, pth, SLICE9_COCO_BLOCKS)
+    print(f"phase 11: wrote {pth} ({len(ref)} tensors) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    n_trunk = sum(1 for k in ref if "aspp" not in k and "num_batches" not in k)
+    load = city_cli.load_coco_init
+    checked = []
+
+    def checked_load(segs, path):
+        aspp = [s.net.aspp.c0.Conv_0.weight.detach().cpu().clone() for s in segs]
+        load(segs, path)
+        for s, a in zip(segs, aspp):
+            got = s.net.trunk.layer1_conv1.Conv_0.weight.detach().cpu()
+            if not torch.equal(got, ref["scale.layer1.conv1.conv.weight"]):
+                raise AssertionError("the COCO trunk did not load into the model")
+            if not torch.equal(s.net.aspp.c0.Conv_0.weight.detach().cpu(), a):
+                raise AssertionError("ASPP-v3 took weights from the DeepLabV2 .pth")
+        checked.append(len(segs))
+
+    batch = []
+    for attempt in ([], ["Lab_Dataloader.batch_size=2", "Unlab_Dataloader.batch_size=2"]):
+        shutil.rmtree(run, ignore_errors=True)
+        common = (["--config", "configs/cityscapes_cotraining.yaml", f"Dataset.root_dir={tree}",
+                   "Dataset.subsample=1", f"Trainer.save_dir={run}",
+                   f"Trainer.coco_init_pth={pth}"] + SLICE9_CITY + attempt)
+        n0 = len(calls)
+        tee = _Tee(sys.stdout)
+        city_cli.load_coco_init = checked_load
+        try:
+            with contextlib.redirect_stdout(tee):
+                city_cli.main(common + ["Trainer.max_epoch=1"])
+                trainer = city_cli.main(common + ["Trainer.max_epoch=2",
+                                                  f"Trainer.checkpoint={run}"])
+            batch = attempt
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if attempt:
+                raise
+            del calls[n0:]
+            print(f"phase 11: deeplabv3plus at the shipped batch of 4 does not fit on the "
+                  f"card ({e}); cut: batch 2", flush=True)
+            torch.cuda.empty_cache()
+        finally:
+            city_cli.load_coco_init = load
+    line = f">> torch init: loaded {n_trunk} tensors, skipped 0 (shape mismatch)"
+    if tee.text().count(line) != 4 or checked != [2, 2]:
+        raise AssertionError(f"phase 11: the COCO init did not load ({line!r} "
+                             f"{tee.text().count(line)} times, checked {checked})")
+    inner = trainer.inner if hasattr(trainer, "inner") else trainer
+    rows, T = _csv_rows(run), inner.iters_per_epoch
+    if [int(r["epoch"]) for r in rows] != [0, 1] or inner.start_epoch != 1:
+        raise AssertionError(f"deeplabv3plus_city: epochs {[r['epoch'] for r in rows]}, "
+                             f"resumed at {inner.start_epoch}")
+    for r in rows:
+        for k, v in r.items():
+            if not math.isfinite(float(v)) or ("mIoU" in k and not 0.0 <= float(v) <= 1.0):
+                raise AssertionError(f"deeplabv3plus_city epoch {r['epoch']}: {k} = {v}")
+        if not float(r["adv_loss"]) > 0:
+            raise AssertionError(f"deeplabv3plus_city: the adversarial term did not run: {r}")
+    if not inner.segmentators[0].bn_momentum == 0.001:
+        raise AssertionError("deeplabv3plus_city: not the fused forward's arch")
+    for epoch, (r, c) in enumerate(zip(rows, calls[n0:])):
+        t_train, t_eval = float(r["t_train"]), float(r["t_eval"])
+        emit({"cli": "deeplabv3plus_city", "cli_epoch": epoch, "t_train": t_train,
+              "t_eval": t_eval, "t_host": c["wall"] - t_train - t_eval, "iterations": T,
+              "s_per_iteration": t_train / T, "images_per_sec": float(r["images_per_sec"]),
+              "image_size": list(inner.val_set.image_size), "batch_cut": batch,
+              "peak_mem_gib": c["peak_gib"], "tf32_convs": torch.backends.cudnn.allow_tf32,
+              "card": card})
+    print(f"phase 11: deeplabv3plus_city: ResNet-101 trunk {SLICE9_COCO_BLOCKS} loaded from "
+          f"the .pth into both models ({n_trunk} tensors each), 1 epoch + resume of {T} "
+          f"iterations, last losses { {k: float(v) for k, v in rows[-1].items() if 'loss' in k} }",
+          flush=True)
+    return {k: sum(c["launches"][k] for c in calls[n0:]) for k in FWD_BWD}
+
+
+def check_slice9_run(torch, name, run, calls, T, per_iter, per_eval, card) -> None:
+    """Finite CSV rows, dice in [0, 1], one ``cli_epoch`` line an epoch, and
+    the kernels' launches a training iteration and an eval forward."""
+    rows = _csv_rows(run)
+    if [int(r["epoch"]) for r in rows] != list(range(len(calls))) or len(calls) != 1:
+        raise AssertionError(f"{name}: metrics.csv epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        for k, v in r.items():
+            if not math.isfinite(float(v)):
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v}")
+            if "dice" in k and not 0.0 <= float(v) <= 1.0:
+                raise AssertionError(f"{name} epoch {r['epoch']}: {k} = {v} outside [0, 1]")
+    for epoch, (r, c) in enumerate(zip(rows, calls)):
+        ev, n_fwd = c["eval"], c["eval"]["forwards"]
+        train = {k: c["launches"][k] - ev[k] for k in FWD_BWD}
+        want = {k: n * T for k, n in zip(FWD_BWD, per_iter)}
+        want_eval = {k: n * n_fwd for k, n in zip(FWD_BWD, per_eval)}
+        if name.endswith("_sup") and not n_fwd:
+            raise AssertionError(f"{name}: no eval forward was counted")
+        if train != want or {k: ev[k] for k in FWD_BWD} != want_eval:
+            raise AssertionError(f"{name} epoch {epoch}: {T} iterations launched {train} "
+                                 f"(expected {want}); {n_fwd} eval forwards launched "
+                                 f"{ {k: ev[k] for k in FWD_BWD} } (expected {want_eval})")
+        t_train, t_eval = float(r["t_train"]), float(r["t_eval"])
+        emit({"cli": name, "cli_epoch": epoch, "t_train": t_train, "t_eval": t_eval,
+              "t_host": c["wall"] - t_train - t_eval, "iterations": T,
+              "s_per_iteration": t_train / T, "images_per_sec": float(r["images_per_sec"]),
+              "peak_mem_gib": c["peak_gib"], "launches_per_iteration": dict(zip(FWD_BWD, per_iter)),
+              "launches_per_eval_forward": dict(zip(FWD_BWD, per_eval)), "eval_forwards": n_fwd,
+              "tf32_convs": torch.backends.cudnn.allow_tf32, "card": card})
+    print(f"phase 11: {name}: 1 epoch of {T} iterations, launches an iteration "
+          f"{dict(zip(FWD_BWD, per_iter))}, an eval forward {dict(zip(FWD_BWD, per_eval))}, "
+          f"last losses { {k: float(v) for k, v in rows[-1].items() if 'loss' in k} }",
+          flush=True)
+
+
+def check_slice9_forwards(torch) -> None:
+    """Phase 11 (d): ``deeplabv2`` (1/8 logits), the MSC wrapper around it
+    (train mode: the full, 0.5 and 0.75 scales and their max), ``resnet18``
+    (train-mode BatchNorm) and ``vgg11`` (eval mode: it has dropout) at full
+    depth on a 256² batch, on the card in fp32 (TF32 off) against the same
+    weights in float64 on the CPU. Train-mode BatchNorm over one image
+    renormalises channels of near-zero variance at each of the trunk's
+    layers, which amplifies fp32 rounding: the CPU's own fp32 forward lies
+    up to 7.4e-3 of scale from float64 at MSC's 0.5 scale (measured). So
+    each output's error must be within twice the CPU fp32 forward's error
+    (and 1e-6) of its scale."""
+    from dct_tpu_torch.models import get_arch
+    from dct_tpu_torch.models.deeplab import DeepLabV2_ResNet101_MSC
+    from dct_tpu_torch.models.layers import init_weights_
+    side = SLICE9_FWD_SIDE
+    nets = [("deeplabv2", lambda: get_arch("deeplabv2", {"num_classes": 19, "in_channels": 3}),
+             3, 1, True),
+            ("deeplabv2_msc", lambda: DeepLabV2_ResNet101_MSC(19, in_channels=3), 3, 1, True),
+            ("resnet18", lambda: get_arch("resnet18", {"num_classes": 4}), 1, 2, True),
+            ("vgg11", lambda: get_arch("vgg11", {"num_classes": 4}), 1, 2, False)]
+    errs = {}
+    for name, build, cin, b, train in nets:
+        gen = torch.Generator().manual_seed(7)
+        net = build()
+        init_weights_(net, gen)
+        x = torch.rand((b, side, side, cin), generator=gen)
+        outs = []
+        for dev, dt in ((CARD, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+            m = build()
+            m.load_state_dict(net.state_dict())
+            m = m.to(dev, dt, memory_format=torch.channels_last).train(train)
+            with tf32_off(torch), torch.no_grad():
+                out = m(x.to(dev, dt))
+            outs.append([o.cpu().double() for o in (out if isinstance(out, list) else [out])])
+            del m
+        card, cpu32, ref = outs
+        errs[name] = {side_name: [float((o - r).abs().max() / r.abs().max())
+                                  for o, r in zip(got, ref)]
+                      for side_name, got in (("card_fp32", card), ("cpu_fp32", cpu32))}
+        shapes = [tuple(r.shape) for r in ref]
+        if any(c > 2 * p + 1e-6 for c, p in zip(errs[name]["card_fp32"],
+                                                errs[name]["cpu_fp32"])):
+            raise AssertionError(f"phase 11: {name} on the card vs float64: {errs[name]}")
+        print(f"phase 11: {name} forward at {side}², outputs {shapes}, fp32 on the card (TF32 "
+              f"off) and on the CPU vs float64 on the CPU (share of scale): {errs[name]}",
+              flush=True)
+    emit({"slice9_forwards_vs_float64": errs})
+
+
+def check_deeplab_iteration(torch, pk) -> dict:
+    """Phase 11 (e): one Cityscapes co-training iteration of two DeepLabV3+
+    (full widths, ``SLICE9_ITER``'s depth and size, 19 classes, B = Bu =
+    ``SLICE9_ITER["B"]``) at the configs' λ maxima (λ_cot 1.0, λ_adv 0.005),
+    FGSM in one direction and VAT in the other, the fused forward, from the
+    same init on the card (fp32, TF32 off) and in float64 on the CPU, the
+    same indices, labels (void pixels among them) and VAT noise; Adam eps
+    1e-3 (as ``check_city_iteration`` says why). Fails unless the losses
+    agree within 1e-4 relative (the adversarial one 2e-3), each update has
+    cosine ≥ 0.99 to the float64 one and the running statistics agree
+    within 1e-3 of each leaf's scale. Returns the launches (none)."""
+    from dct_tpu_torch.cli import supervised_loss
+    from dct_tpu_torch.config import yaml_parser
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train.city import make_city_cotrain_epoch
+    config = yaml_parser("configs/cityscapes_cotraining.yaml", [])
+    (H, W), B = SLICE9_ITER["hw"], SLICE9_ITER["B"]
+    arch = {"name": "deeplabv3plus", "num_classes": 19, "n_blocks": SLICE9_ITER["n_blocks"],
+            "grids": SLICE9_ITER["grids"]}
+    optim = {"name": "Adam", "lr": 5e-4, "weight_decay": 2e-4, "eps": 1e-3}
+    sched = {"name": "StepLR", "step_size": 100, "gamma": 0.1}
+    rs = np.random.RandomState(12)
+    N = 8
+    img = torch.from_numpy(rs.randint(0, 256, (N, H, W, 3)).astype(np.uint8))
+    gt = rs.randint(0, 19, (N, H, W)).astype(np.uint8)
+    gt[:, : H // 8] = 250
+    gt = torch.from_numpy(gt)
+    idx = (rs.randint(0, N, (1, 2, B)).astype(np.int32), rs.randint(0, N, (1, B)).astype(np.int32),
+           rs.randint(0, N, (1, 2, B)).astype(np.int32), rs.randint(0, N, (1, 2, B)).astype(np.int32))
+    flags = np.array([[True, False]])
+    noise = torch.randn((1, 2, B, H, W, 3), generator=torch.Generator().manual_seed(13))
+    inits = [Segmentator(arch, optim, sched, torch.Generator().manual_seed(20 + k),
+                         device="cpu", in_channels=3).net.state_dict() for k in range(2)]
+    out = []
+    for side, dtype in ((CARD, torch.float32), ("cpu", torch.float64)):
+        segs = [Segmentator(arch, optim, sched, torch.Generator().manual_seed(0), device=side,
+                            in_channels=3) for _ in range(2)]
+        for s, sd in zip(segs, inits):
+            s.net.load_state_dict(sd)
+            s.compute_dtype = dtype
+        epoch = make_city_cotrain_epoch(segs, 19, supervised_loss(config), True, True,
+                                        0.03, 0.03)
+        with tf32_off(torch):
+            torch.cuda.synchronize()
+            pk.reset_launch_counts()
+            t0 = time.perf_counter()
+            m = epoch(img.to(side), gt.to(side), *idx, flags, None, 5e-4, 1.0, 0.005,
+                      vat_noise=noise.to(side))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        out.append(({k: v.cpu().double() for k, v in m.items()},
+                    [{k: v.detach().cpu().double() for k, v in s.net.state_dict().items()}
+                     for s in segs], dict(pk.LAUNCHES), dt))
+        del segs, epoch
+    (m_card, new_card, launches, dt_card), (m_ref, new_ref, _, dt_ref) = out
+    errs = {k: float(((m_card[k] - m_ref[k]).abs() / m_ref[k].abs()).max()) for k in m_ref}
+    cos, stats = [], []
+    for s in range(2):
+        init = {k: v.double() for k, v in inits[s].items()}
+        keys = [k for k in init if "running" not in k]
+        upd = [torch.cat([(new[s][k] - init[k]).flatten() for k in keys])
+               for new in (new_card, new_ref)]
+        cos.append(float(torch.nn.functional.cosine_similarity(*upd, dim=0)))
+        stats.append(max(float((new_card[s][k] - new_ref[s][k]).abs().max())
+                         / max(1.0, float(new_ref[s][k].abs().max()))
+                         for k in init if "running" in k))
+    res = {"loss_rel_err": errs, "update_cosine": cos, "stats_err": stats,
+           "losses_card": {k: v.flatten().tolist() for k, v in m_card.items()},
+           "seconds_card": dt_card, "seconds_cpu_float64": dt_ref, "launches": launches}
+    if (errs["sup_loss"] > 1e-4 or errs["jsd_loss"] > 1e-4 or errs["adv_loss"] > 2e-3
+            or min(cos) < 0.99 or max(stats) > 1e-3):
+        raise AssertionError(f"DeepLabV3+ iteration on the card vs float64: {res}")
+    print(f"phase 11: one DeepLabV3+ co-training iteration (n_blocks "
+          f"{SLICE9_ITER['n_blocks']}, full widths, {H}×{W}, B = Bu = {B}), λ_cot 1.0, "
+          f"λ_adv 0.005, flags [FGSM, VAT], on the card (TF32 off) vs float64 on the CPU: "
+          f"{res}", flush=True)
+    emit({"deeplabv3plus_iteration_card_vs_float64": res})
+    return launches
 
 
 def profile_step(torch, pk, make_epoch, ce, segs, img_u8, gt_u8, rs, gen):

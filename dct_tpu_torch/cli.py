@@ -59,9 +59,3 @@ def reject_parallel(trainer_cfg: Dict[str, Any]) -> None:
         raise NotImplementedError(
             "Trainer.parallel is not ported yet (ROADMAP queue 1 item 8, parallel/)")
 
-
-def reject_coco_init(trainer_cfg: Dict[str, Any]) -> None:
-    if trainer_cfg.get("coco_init_pth"):
-        raise NotImplementedError(
-            "Trainer.coco_init_pth is not ported yet (ROADMAP queue 1 item 6, "
-            "DeepLab and its COCO-pretrained weights)")

@@ -7,6 +7,8 @@ of fp32 parameters serves fp32 and bf16 forwards.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -16,6 +18,14 @@ BN_MOMENTUM = 0.9   # flax convention: new = m·old + (1 − m)·batch
 
 
 class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose kernel ``init_weights_`` draws from the family
+    named by ``init``: ``"xavier"`` (dct_tpu's ``conv_kernel_init``),
+    ``"lecun"`` (flax's default) or ``("normal", std)``."""
+
+    def __init__(self, *args, init="xavier", **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.init = init
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
@@ -29,6 +39,17 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.stride, self.padding,
                                   self.output_padding, self.groups,
                                   self.dilation)
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: lecun-normal kernel, zero bias."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.init = "lecun"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class PReLU(nn.Module):
@@ -64,13 +85,19 @@ class BatchNorm(nn.Module):
     statistics take the halves in order, labeled first:
     r1 = m·r0 + (1 − m)·b_lab, then r2 = m·r1 + (1 − m)·b_unlab, which
     is dct_tpu's composed ``m·kg[:,0] + kg[:,1] − m·r0`` up to float
-    reassociation."""
+    reassociation.
+
+    ``scale_init`` is the family ``init_weights_`` draws the scale from:
+    ``"normal"``, N(1, 0.02) (dct_tpu's ``layers.batch_norm``), or
+    ``"ones"`` (flax's ``nn.BatchNorm`` default, which DeepLab's, PSPNet's
+    and ResNet18's use, with eps 1e-5)."""
 
     def __init__(self, channels: int, eps: float = BN_EPS,
-                 momentum: float = BN_MOMENTUM) -> None:
+                 momentum: float = BN_MOMENTUM, scale_init: str = "normal") -> None:
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.scale_init = scale_init
         self.update_stats = True
         self.groups = 1
         self.weight = nn.Parameter(torch.ones(channels))
@@ -91,12 +118,23 @@ class BatchNorm(nn.Module):
                              f"{self.groups} equal groups")
         ys = []
         for part in parts:
-            y, mean, invstd = torch.native_batch_norm(part, weight, bias, None, None,
-                                                      True, 0.0, self.eps)
+            if part.numel() == part.shape[1]:
+                # one value a channel: flax's (x − mean)·rsqrt(var + eps) is
+                # exactly 0 and so has no gradient, the output exactly the
+                # bias; native_batch_norm's fused form leaves ~1e-13 there,
+                # which a following ReLU would turn into gradient
+                y = ((part - part).to(wdt) * weight[None, :, None, None]
+                     + bias[None, :, None, None]).to(part.dtype)
+                mean, var = part.detach().reshape(-1), torch.zeros_like(weight)
+            else:
+                y, mean, invstd = torch.native_batch_norm(part, weight, bias, None, None,
+                                                          True, 0.0, self.eps)
+                var = None
             ys.append(y)
             if self.update_stats:
                 with torch.no_grad():     # running = m·running + (1 − m)·batch
-                    var = invstd.pow(-2) - self.eps
+                    if var is None:
+                        var = invstd.pow(-2) - self.eps
                     self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                             1 - self.momentum)
                     self.running_var.lerp_(var.to(self.running_var.dtype),
@@ -113,7 +151,8 @@ class Dropout(nn.Module):
     train-mode forward without one raises, as flax raises without a
     "dropout" RNG. ``keep_mask``, when set, is used instead of a draw: a
     bool tensor of the activation's NHWC shape (dct_tpu's layout), the way
-    tests hand both frameworks the same masks."""
+    tests hand both frameworks the same masks. A 2-D activation (a
+    classifier's features) takes a 2-D mask as it is."""
 
     def __init__(self, rate: float = 0.5) -> None:
         super().__init__()
@@ -126,7 +165,9 @@ class Dropout(nn.Module):
             return x
         keep_prob = 1.0 - self.rate
         if self.keep_mask is not None:
-            keep = self.keep_mask.to(x.device).permute(0, 3, 1, 2)
+            keep = self.keep_mask.to(x.device)
+            if x.dim() == 4:
+                keep = keep.permute(0, 3, 1, 2)
         elif self.generator is None:
             raise RuntimeError(
                 "Dropout needs a generator for 'dropout' in train mode (dct_tpu "
@@ -167,18 +208,42 @@ def remat(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return checkpoint(run, x, use_reentrant=False)
 
 
+# flax's lecun_normal is a normal truncated at ±2σ, σ rescaled by this
+# factor so that the draws' standard deviation is sqrt(1 / fan_in)
+_TRUNCATED_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights_(net: nn.Module, generator: torch.Generator) -> None:
-    """dct_tpu's init: xavier-normal conv kernels, zero conv biases, BN scale
-    drawn from N(1, 0.02), zero BN bias, PReLU α 0.25. Draws follow
-    ``net.modules()`` order from ``generator``."""
+    """dct_tpu's init, each module's own family: conv kernels xavier-normal
+    (dct_tpu's ``conv_kernel_init``), N(0, std) or lecun-normal as their
+    ``init`` says, Dense kernels lecun-normal, zero biases; BN scale drawn
+    from N(1, 0.02) or ones as its ``scale_init`` says, zero BN bias; PReLU
+    α 0.25. lecun is flax's truncated normal; xavier is torch's plain
+    normal of flax's standard deviation, which flax truncates at ±2σ
+    (ROADMAP §3). Draws follow ``net.modules()`` order from ``generator``."""
     for mod in net.modules():
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-            nn.init.xavier_normal_(mod.weight, generator=generator)
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            init = getattr(mod, "init", "xavier")
+            if init == "xavier":
+                nn.init.xavier_normal_(mod.weight, generator=generator)
+            elif init == "lecun":       # a conv's or dense kernel's fan_in
+                fan_in = mod.weight.shape[1] * math.prod(mod.weight.shape[2:])
+                std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            else:
+                family, std = init
+                if family != "normal":
+                    raise ValueError(f"unknown init {init!r}")
+                mod.weight.normal_(0.0, std, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, BatchNorm):
-            mod.weight.normal_(1.0, 0.02, generator=generator)
+            if mod.scale_init == "ones":
+                mod.weight.fill_(1.0)
+            else:
+                mod.weight.normal_(1.0, 0.02, generator=generator)
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)

@@ -7,16 +7,16 @@ the card:
 
 One ENet on the whole (subsampled) train split, no partitions and no
 semi-supervised terms (``train/city.py:TrainerCity``). Config, overrides,
-``--device``, ``Trainer.checkpoint`` (a run directory), and the keys that
-raise (``Trainer.coco_init_pth``, ``Trainer.parallel``) as in
-``train_cotraining_city``. As in dct_tpu, ``StartTraining.save_val`` dumps
-nothing here.
+``--device``, ``Trainer.checkpoint`` (a run directory) and
+``Trainer.parallel`` (it raises) as in ``train_cotraining_city``. As in
+dct_tpu, ``Trainer.coco_init_pth`` is not read here and
+``StartTraining.save_val`` dumps nothing.
 """
 from __future__ import annotations
 
 import sys
 
-from .cli import build_segmentators, parse_args, reject_coco_init, reject_parallel, supervised_loss
+from .cli import build_segmentators, parse_args, reject_parallel, supervised_loss
 from .data.cityscapes import CityscapesDataset
 from .train import TrainerCity
 from .utils.general import fix_all_seed
@@ -27,7 +27,6 @@ DEFAULT_CONFIG = "configs/cityscapes_supervised.yaml"
 def main(argv=None) -> TrainerCity:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
-    reject_coco_init(trainer_cfg)
     reject_parallel(trainer_cfg)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)

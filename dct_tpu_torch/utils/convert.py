@@ -8,10 +8,11 @@ state_dict key by joining it with dots and renaming the leaf:
 
 * ``kernel`` → ``weight``. A conv kernel goes from HWIO to OIHW. A
   ConvTranspose kernel (ENet's ``mid_deconv`` and ``fullconv``, UNet's
-  ``center_up`` and ``ConvTranspose_0``) is flipped spatially and
-  transposed to torch's (I,O,kh,kw): flax applies it unflipped, torch's
-  ConvTranspose2d flipped (the inverse of ``_deconv_k`` in
-  ``dct_tpu/utils/torch_convert.py``).
+  ``center_up`` and ``ConvTranspose_0``, CorstemNet's ``deconv_1`` …
+  ``deconv_4``) is flipped spatially and transposed to torch's
+  (I,O,kh,kw): flax applies it unflipped, torch's ConvTranspose2d flipped
+  (the inverse of ``_deconv_k`` in ``utils/torch_convert.py``). A Dense
+  kernel (in, out) becomes ``nn.Linear``'s (out, in).
 * BatchNorm ``scale`` → ``weight``; ``batch_stats`` ``mean``/``var`` →
   ``running_mean``/``running_var``.
 * ``bias`` and PReLU ``alpha`` keep their names.
@@ -37,9 +38,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-# the ConvTranspose modules: ENet's, and UNet's ``center_up`` and its
-# decoder stages' ``ConvTranspose_0``
-_DECONV = {"mid_deconv", "fullconv", "center_up", "ConvTranspose_0"}
+# the ConvTranspose modules: ENet's, UNet's ``center_up`` and its decoder
+# stages' ``ConvTranspose_0``, and CorstemNet's four
+_DECONV = {"mid_deconv", "fullconv", "center_up", "ConvTranspose_0",
+           "deconv_1", "deconv_2", "deconv_3", "deconv_4"}
 _LEAF = {"scale": "weight", "kernel": "weight", "bias": "bias",
          "alpha": "alpha", "mean": "running_mean", "var": "running_var"}
 _STATS = {"running_mean": "mean", "running_var": "var"}
@@ -60,7 +62,9 @@ def _to_torch(path: Tuple[str, ...], arr) -> Tuple[str, torch.Tensor]:
         raise KeyError(f"unmapped flax leaf {'/'.join(map(str, path))}")
     a = np.array(arr)
     if leaf == "kernel":
-        if path[-2] in _DECONV:
+        if a.ndim == 2:
+            a = a.T                                    # (in,out) → (out,in)
+        elif path[-2] in _DECONV:
             a = a[::-1, ::-1].transpose(2, 3, 0, 1)    # (kh,kw,I,O) → (I,O,kh,kw)
         else:
             a = a.transpose(3, 2, 0, 1)                # (kh,kw,I,O) → (O,I,kh,kw)
@@ -71,7 +75,7 @@ def _to_torch(path: Tuple[str, ...], arr) -> Tuple[str, torch.Tensor]:
 def params_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
                     ) -> Dict[str, torch.Tensor]:
     """flax ``params`` and ``batch_stats`` nested dicts (numpy leaves) of one
-    ENet → this port's ENet state_dict (CPU tensors)."""
+    net → this port's state_dict of that net (CPU tensors)."""
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
         for path, arr in _walk(tree):
@@ -103,7 +107,7 @@ def params_from_jax_stacked(params: Dict[str, Any], batch_stats: Dict[str, Any],
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]
                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """This port's ENet state_dict → flax (``params``, ``batch_stats``)
+    """This port's state_dict of a net → flax (``params``, ``batch_stats``)
     nested dicts of numpy arrays: the inverse of ``params_from_jax``."""
     params: Dict[str, Any] = {}
     batch_stats: Dict[str, Any] = {}
@@ -115,7 +119,9 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
             tree, name = batch_stats, _STATS[leaf]
         else:
             tree = params
-            if leaf == "weight" and a.ndim == 4:
+            if leaf == "weight" and a.ndim == 2:
+                name, a = "kernel", a.T      # (out,in) → (in,out)
+            elif leaf == "weight" and a.ndim == 4:
                 name = "kernel"
                 if path[-2] in _DECONV:      # (I,O,kh,kw) → (kh,kw,I,O), unflipped
                     a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
@@ -254,7 +260,9 @@ def _template(net: torch.nn.Module, k: Optional[int] = None) -> Dict[str, Any]:
     for key, p in net.named_parameters():
         path = key.split(".")
         shape, name = tuple(p.shape), path[-1]
-        if name == "weight" and p.ndim == 4:
+        if name == "weight" and p.ndim == 2:
+            name, shape = "kernel", shape[::-1]
+        elif name == "weight" and p.ndim == 4:
             name = "kernel"
             io = shape[:2] if path[-2] in _DECONV else shape[1::-1]
             shape = shape[2:] + io

@@ -4,7 +4,9 @@ against dct_tpu's (exactly), the batchers' ``shuffle``/``drop_last``,
 ``CoTrainerCity``'s host draws and CSV header against dct_tpu's, the
 ``deeplabenet`` registry entry, and both city CLIs on a synthetic tree:
 one epoch, then a resume, with the CSV columns, checkpoint payloads and
-prediction dumps in dct_tpu's layout.
+prediction dumps in dct_tpu's layout; ``Trainer.coco_init_pth`` loaded
+into a DeepLabV3+ trunk by the co-training CLI (or its failure printed),
+and ignored by the supervised one, as in dct_tpu.
 
 The eval comparison compiles one dct_tpu eval step (float64 network
 arithmetic on both sides, so the argmax sees no rounding); dct_tpu's
@@ -293,10 +295,99 @@ def test_city_cli_epoch_and_resume(root, tmp_path, flax_tree, which):
 def test_city_clis_refuse_what_is_not_ported(root, tmp_path):
     for main, config in ((cotrain_main, "cityscapes_cotraining"),
                          (sup_main, "cityscapes_supervised")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            main(cli_args(root, tmp_path, config, "Trainer.coco_init_pth=coco.pth"))
         with pytest.raises(NotImplementedError, match="item 8"):
             main(cli_args(root, tmp_path, config, "Trainer.parallel=auto"))
+
+
+DEEPLAB = ("Arch.name=deeplabv3plus", "Arch.n_blocks=[1,1,1,1]", "Arch.grids=[1]")
+
+
+def reference_deeplabv2_state_dict(num_classes=21, seed=0):
+    """A torch state_dict in the reference DeepLabV2's key layout (its
+    ``scale.`` prefix, the trunk's ``conv``/``bn`` pairs, the ASPP's
+    ``stages``, ``num_batches_tracked``), random values from a seed, at the
+    port's trunk of ``n_blocks`` (1, 1, 1, 1) and a COCO-sized head."""
+    net = get_arch("deeplabv2", {"num_classes": num_classes, "n_blocks": [1, 1, 1, 1],
+                                 "in_channels": 3})
+    rs = np.random.RandomState(seed)
+    sd = {}
+    for key, t in net.state_dict().items():
+        parts = key.split(".")
+        if parts[0] == "aspp":
+            name = f"aspp.stages.{parts[1]}.{parts[2]}"
+        else:
+            trunk = "layer1.conv1" if parts[1] == "layer1_conv1" else ".".join(parts[1:-2])
+            sub = "conv" if parts[-2] == "Conv_0" else "bn"
+            name = f"{trunk}.{sub}.{parts[-1]}"
+        sd["scale." + name] = torch.from_numpy(rs.standard_normal(tuple(t.shape))
+                                               .astype(np.float32))
+        if name.endswith("bn.running_var"):
+            sd["scale." + name] = sd["scale." + name].abs() + 0.5
+            sd["scale." + name.replace("running_var", "num_batches_tracked")] = \
+                torch.tensor(7)
+    return sd
+
+
+@pytest.fixture(scope="module")
+def coco_pth(tmp_path_factory):
+    path = tmp_path_factory.mktemp("coco") / "deeplabv2_coco.pth"
+    torch.save(reference_deeplabv2_state_dict(), path)
+    return path
+
+
+def test_cotraining_city_loads_coco_init_into_the_deeplab_trunk(root, tmp_path, coco_pth,
+                                                                capsys, monkeypatch):
+    """``Trainer.coco_init_pth`` with ``deeplabv3plus``: every model takes
+    the trunk's tensors (dct_tpu's line: loaded N, skipped 0), the ASPP keeps
+    its init (ASPP-v3's names are not the .pth's), and training goes on."""
+    seen = []
+    monkeypatch.setattr(city_mod.CoTrainerCity, "start_training",
+                        lambda self, **kw: seen.append(
+                            [{k: v.clone() for k, v in s.net.state_dict().items()}
+                             for s in self.segmentators]))
+    cotrain_main(cli_args(root, tmp_path, "cityscapes_cotraining", *DEEPLAB,
+                          f"Trainer.coco_init_pth={coco_pth}", "Trainer.max_epoch=1"))
+    out = capsys.readouterr().out
+    ref = torch.load(coco_pth)
+    n_trunk = sum(1 for k in ref if not k.startswith("scale.aspp")
+                  and not k.endswith("num_batches_tracked"))
+    assert out.count(f">> torch init: loaded {n_trunk} tensors, skipped 0 "
+                     "(shape mismatch)") == 2
+    assert "Coco pretrained model loaded" in out
+    for sd in seen[0]:
+        assert torch.equal(sd["trunk.layer1_conv1.Conv_0.weight"],
+                           ref["scale.layer1.conv1.conv.weight"])
+        assert torch.equal(sd["trunk.layer5.block1.proj.BatchNorm_0.running_var"],
+                           ref["scale.layer5.block1.proj.bn.running_var"])
+
+
+@pytest.mark.parametrize("arch,pth", [(("Arch.name=enet",), "coco"),
+                                      (DEEPLAB, "missing")],
+                         ids=["enet_nothing_matches", "missing_file"])
+def test_cotraining_city_warns_and_trains_on(root, tmp_path, coco_pth, capsys, arch, pth):
+    """Nothing of an ENet matches the .pth (dct_tpu's assert), or the file
+    is missing: the CLI prints dct_tpu's failure line and trains one epoch
+    from its init."""
+    path = coco_pth if pth == "coco" else tmp_path / "missing.pth"
+    run = tmp_path / "run"
+    cotrain_main(cli_args(root, run, "cityscapes_cotraining", *arch,
+                          f"Trainer.coco_init_pth={path}", "Trainer.max_epoch=1"))
+    out = capsys.readouterr().out
+    assert "Loading coco pretrained model failed with:" in out
+    assert "Coco pretrained model loaded" not in out
+    with open(run / "metrics.csv", newline="") as f:
+        assert [r["epoch"] for r in csv.DictReader(f)] == ["0"]
+
+
+def test_sup_city_ignores_coco_init(root, tmp_path, capsys):
+    """dct_tpu's ``train_sup_city`` never reads ``Trainer.coco_init_pth``."""
+    sup_main(cli_args(root, tmp_path, "cityscapes_supervised",
+                      f"Trainer.coco_init_pth={tmp_path / 'missing.pth'}",
+                      "Trainer.max_epoch=1"))
+    out = capsys.readouterr().out
+    assert "torch init" not in out and "coco pretrained" not in out.lower()
+    with open(tmp_path / "metrics.csv", newline="") as f:
+        assert [r["epoch"] for r in csv.DictReader(f)] == ["0"]
 
 
 @pytest.mark.parametrize("main", [cotrain_main, sup_main])

@@ -97,8 +97,8 @@ def test_segmentator_needs_cuda_or_explicit_cpu(no_cuda):
     assert next(seg.net.parameters()).device.type == "cpu"
     x = torch.rand(1, 16, 16, 1)
     assert seg.apply_eval(x).shape == (1, 16, 16, 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Segmentator({"name": "pspnet", "num_classes": 4}, *cfg[1:],
+    with pytest.raises(AssertionError, match="is not found"):
+        Segmentator({"name": "no_such_arch", "num_classes": 4}, *cfg[1:],
                     torch.Generator().manual_seed(0), device="cpu")
 
 
