@@ -48,7 +48,7 @@ def vat_perturbation(seg: Segmentator, img: torch.Tensor, xi: float = 1e-6,
                      epsilon: float = 10.0, ip: int = 1, clamp: bool = True,
                      d: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     update_stats: bool = True
+                     update_stats: bool = True, mean: Callable = torch.mean
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Virtual adversarial perturbation by ``ip`` power iterations
     (arXiv 1704.03976), as dct_tpu computes it.
@@ -60,7 +60,9 @@ def vat_perturbation(seg: Segmentator, img: torch.Tensor, xi: float = 1e-6,
     noise ``d``, of ``img``'s shape, is drawn from ``generator`` unless
     given. Returns (adversarial image, clamped to [0, 1] when ``clamp``;
     ``r_adv``), both detached; ``r_adv`` has L2 norm ``epsilon`` per sample
-    unless the power iteration's gradient is exactly zero."""
+    unless the power iteration's gradient is exactly zero. ``mean`` reduces
+    the power iteration's KL map (a data-parallel step passes its rank's
+    share of the global mean)."""
     with torch.no_grad():
         clean_logits = seg.apply_train(img, update_stats=update_stats)
     if d is None:
@@ -71,7 +73,7 @@ def vat_perturbation(seg: Segmentator, img: torch.Tensor, xi: float = 1e-6,
         dd = (xi * _l2_normalize(d)).requires_grad_(True)
         y_hat = seg.apply_train(img + dd, update_stats=False)
         (d,) = torch.autograd.grad(
-            torch.mean(kl_div_2d_logits(y_hat, clean_logits)), [dd])
+            mean(kl_div_2d_logits(y_hat, clean_logits)), [dd])
     r_adv = epsilon * _l2_normalize(d)
     adv_img = img + r_adv
     if clamp:

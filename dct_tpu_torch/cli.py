@@ -4,6 +4,8 @@ regex, read from the config as dct_tpu's CLIs read them."""
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -19,7 +21,10 @@ def parse_args(argv: Optional[List[str]], default_config: str
                ) -> Tuple[Dict[str, Any], torch.device]:
     """``[--device cuda|cpu] [--config path] A.B=value ...`` → (config,
     device). The device is resolved first: without a card and without
-    ``--device cpu`` this raises before anything is read."""
+    ``--device cpu`` this raises before anything is read. In a ``torchrun``
+    launch, ranks other than 0 print nothing from here on."""
+    if int(os.environ.get("RANK", 0)) != 0:
+        sys.stdout = open(os.devnull, "w")
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda",
                      help="cuda (default: the current card) or cpu")
@@ -54,8 +59,39 @@ def grp_regex(config: Dict[str, Any], loader: str) -> str:
     return bs_cfg[1]["grp_regex"] if bs_cfg else DEFAULT_GRP_REGEX
 
 
-def reject_parallel(trainer_cfg: Dict[str, Any]) -> None:
-    if trainer_cfg.get("parallel") is not None:
-        raise NotImplementedError(
-            "Trainer.parallel is not ported yet (ROADMAP queue 1 item 8, parallel/)")
+def parallel_mesh(trainer_cfg: Dict[str, Any], device: torch.device,
+                  n_models: Optional[int] = None):
+    """``Trainer.parallel`` → (mesh or None, the rank's device), as dct_tpu's
+    CLIs choose: for co-training (``n_models`` given) ``auto`` is
+    ``choose_parallel_mesh(K, world)`` and an int the model axis of
+    ``make_mesh(world, n_model=int)``, even at world 1; for the other CLIs
+    any value is ``data_parallel_mesh(world)``. Under ``torchrun`` (its
+    ``WORLD_SIZE`` set) the process group is joined first, NCCL on the card
+    and gloo with ``--device cpu``; above one rank an unset
+    ``Trainer.parallel`` raises, since every rank would write the same run."""
+    from .parallel.mesh import (choose_parallel_mesh, data_parallel_mesh,
+                                init_distributed, is_main, make_mesh, world_size)
+    if "WORLD_SIZE" in os.environ:
+        device = init_distributed(device)
+    par = trainer_cfg.get("parallel")
+    if par is None:
+        if world_size() > 1:
+            raise ValueError(f"{world_size()} ranks and Trainer.parallel unset: set "
+                             "Trainer.parallel (auto, or the model axis) to train "
+                             "across them")
+        return None, device
+    if n_models is None:
+        mesh = data_parallel_mesh()
+    elif par == "auto":
+        mesh = choose_parallel_mesh(n_models)
+    else:
+        mesh = make_mesh(n_model=int(par))
+    if mesh is not None and is_main():
+        print(f">> parallel mesh: {mesh.shape}")
+    return mesh, device
 
+
+def finish() -> None:
+    """Leave the process group, if the run joined one."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

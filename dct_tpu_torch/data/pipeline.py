@@ -12,7 +12,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .augment import sample_aug_thetas, warp_gathered_u8
+from .augment import augment_batch_with_thetas, sample_aug_thetas, warp_gathered_u8
 from .dataset import MedicalImageDataset
 
 
@@ -49,16 +49,19 @@ def gather_augment_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
                       idx: torch.Tensor, generator: Optional[torch.Generator],
                       dtype=torch.float32, thetas: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``normalize_gather`` + one nearest warp of the gathered grayscale
-    batch, by ``thetas`` (B,2,3) when given, else by thetas drawn from
-    ``generator``."""
-    if img_u8.dim() != 3:
-        raise NotImplementedError("augmenting multi-channel datasets is "
-                                  "not ported yet (a later slice)")
+    """``normalize_gather`` + one nearest warp of the gathered batch, by
+    ``thetas`` (B,2,3) when given, else by thetas drawn from ``generator``.
+    A multi-channel (N,H,W,C) dataset goes through ``normalize_gather`` and
+    ``augment_batch_with_thetas`` as in dct_tpu, which warps the first
+    channel only and returns it alone: a (B,H,W,1) image."""
     if thetas is None:
         thetas = sample_aug_thetas(generator, idx.shape[0], img_u8.shape[1],
                                    img_u8.shape[2])
-    return warp_gathered_u8(img_u8[idx], gt_u8[idx], thetas.to(img_u8.device), dtype)
+    thetas = thetas.to(img_u8.device)
+    if img_u8.dim() != 3:
+        img, gt = normalize_gather(img_u8, gt_u8, idx, dtype)
+        return augment_batch_with_thetas(img, gt, thetas)
+    return warp_gathered_u8(img_u8[idx], gt_u8[idx], thetas, dtype)
 
 
 class EpochBatcher:

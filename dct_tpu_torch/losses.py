@@ -6,7 +6,7 @@ logits.
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,10 +17,14 @@ EPS_ENT = 1e-16
 
 def cross_entropy2d(logits: torch.Tensor, target: torch.Tensor,
                     weight: Optional[Sequence[float]] = None,
-                    ignore_index: int = 255) -> torch.Tensor:
+                    ignore_index: int = 255,
+                    den_reduce: Optional[Callable] = None) -> torch.Tensor:
     """Weighted 2D cross-entropy, torch-NLLLoss semantics: the weighted mean
     sum(w[y]·nll) / sum(w[y]) over the pixels whose target is not
-    ``ignore_index``. logits (..., H, W, C); target (..., H, W) ints."""
+    ``ignore_index``. logits (..., H, W, C); target (..., H, W) ints.
+    ``den_reduce``, when given, maps the denominator (which has no
+    gradient) before the division: the data-parallel steps sum it over
+    the ranks, so each rank's value is its share of the global mean."""
     logp = torch.log_softmax(logits, dim=-1)
     valid = target != ignore_index
     safe = torch.where(valid, target, 0).long()
@@ -30,14 +34,19 @@ def cross_entropy2d(logits: torch.Tensor, target: torch.Tensor,
         pix_w = w[safe] * valid
     else:
         pix_w = valid.to(logits.dtype)
-    return torch.sum(nll * pix_w) / torch.clamp_min(torch.sum(pix_w), 1e-12)
+    den = torch.sum(pix_w)
+    if den_reduce is not None:
+        den = den_reduce(den)
+    return torch.sum(nll * pix_w) / torch.clamp_min(den, 1e-12)
 
 
-def partial_cross_entropy2d(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def partial_cross_entropy2d(logits: torch.Tensor, target: torch.Tensor,
+                            den_reduce: Optional[Callable] = None) -> torch.Tensor:
     """CE with class 0 weighted out (weight [0, 1, …, 1]) and no ignored
     index."""
     w = [0.0] + [1.0] * (logits.shape[-1] - 1)
-    return cross_entropy2d(logits, target, weight=w, ignore_index=-100)
+    return cross_entropy2d(logits, target, weight=w, ignore_index=-100,
+                           den_reduce=den_reduce)
 
 
 def entropy_2d(probs: torch.Tensor) -> torch.Tensor:

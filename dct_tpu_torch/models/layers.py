@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.9   # flax convention: new = m·old + (1 − m)·batch
 
@@ -87,6 +89,14 @@ class BatchNorm(nn.Module):
     is dct_tpu's composed ``m·kg[:,0] + kg[:,1] − m·r0`` up to float
     reassociation.
 
+    With ``group`` set (a data-parallel process group, ``data_parallel.py``)
+    train mode normalises with the statistics of the global batch: each
+    rank's per-channel mean and centred sum of squares of each half are
+    all-gathered with their gradient and combined (Chan's formula, equal
+    chunks), and the one-value-a-channel case is decided on the global
+    count. flax's rules stay: the biased variance folds into the running
+    one, halves labeled first. ``nn.SyncBatchNorm`` folds the unbiased one.
+
     ``scale_init`` is the family ``init_weights_`` draws the scale from:
     ``"normal"``, N(1, 0.02) (dct_tpu's ``layers.batch_norm``), or
     ``"ones"`` (flax's ``nn.BatchNorm`` default, which DeepLab's, PSPNet's
@@ -100,6 +110,7 @@ class BatchNorm(nn.Module):
         self.scale_init = scale_init
         self.update_stats = True
         self.groups = 1
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -116,6 +127,8 @@ class BatchNorm(nn.Module):
         if any(p.shape[0] != parts[0].shape[0] for p in parts):
             raise ValueError(f"a batch of {x.shape[0]} does not split into "
                              f"{self.groups} equal groups")
+        if comm.group_size(self.group) > 1:
+            return self._global(parts, weight, bias, wdt)
         ys = []
         for part in parts:
             if part.numel() == part.shape[1]:
@@ -141,6 +154,39 @@ class BatchNorm(nn.Module):
                                            1 - self.momentum)
         return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
 
+    def _global(self, parts, weight, bias, wdt):
+        """Train mode over the global batch of ``group`` (its ranks hold
+        equal chunks)."""
+        n_rank = comm.group_size(self.group)
+        c = parts[0].shape[1]
+        local = []
+        for part in parts:
+            xf = part.to(wdt)
+            mean = xf.mean(dim=(0, 2, 3))
+            m2 = ((xf - mean[None, :, None, None]) ** 2).sum(dim=(0, 2, 3))
+            local.append(torch.cat([mean, m2]))
+        every = comm.all_gather(torch.stack(local), self.group)   # (ranks, groups, 2C)
+        ys = []
+        for i, part in enumerate(parts):
+            n = part.numel() // c                                  # a rank's count
+            means, m2s = every[:, i, :c], every[:, i, c:]
+            mean = means.mean(0)
+            var = (m2s.sum(0) + n * ((means - mean) ** 2).sum(0)) / (n * n_rank)
+            if n * n_rank == 1:
+                y = (part - part).to(wdt) * weight[None, :, None, None]
+            else:
+                y = ((part.to(wdt) - mean[None, :, None, None])
+                     * torch.rsqrt(var + self.eps)[None, :, None, None]
+                     * weight[None, :, None, None])
+            ys.append((y + bias[None, :, None, None]).to(part.dtype))
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                            1 - self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype),
+                                           1 - self.momentum)
+        return ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
+
 
 class Dropout(nn.Module):
     """flax's ``nn.Dropout(rate)`` in train mode: an element-wise Bernoulli
@@ -149,7 +195,9 @@ class Dropout(nn.Module):
     The mask is drawn from ``generator``, which the Segmentator sets for one
     train-mode forward (``apply_train(dropout_generator=...)``); a
     train-mode forward without one raises, as flax raises without a
-    "dropout" RNG. ``keep_mask``, when set, is used instead of a draw: a
+    "dropout" RNG. With ``shard`` set (a ``data_parallel.DataShard``) the
+    mask is drawn for the global batch and cut to this rank's rows, as one
+    process would draw it. ``keep_mask``, when set, is used instead of a draw: a
     bool tensor of the activation's NHWC shape (dct_tpu's layout), the way
     tests hand both frameworks the same masks. A 2-D activation (a
     classifier's features) takes a 2-D mask as it is."""
@@ -159,6 +207,7 @@ class Dropout(nn.Module):
         self.rate = rate
         self.generator = None
         self.keep_mask = None
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0:
@@ -173,6 +222,10 @@ class Dropout(nn.Module):
                 "Dropout needs a generator for 'dropout' in train mode (dct_tpu "
                 "passes a dropout RNG only in the supervised step and the "
                 "Mean-Teacher student)")
+        elif self.shard is not None:    # the global batch's draw, this rank's rows
+            keep = self.shard.draw(lambda n: torch.rand(
+                (n,) + x.shape[1:], generator=self.generator, device=x.device),
+                x.shape[0]) < keep_prob
         else:
             keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, 0.0)
@@ -208,8 +261,9 @@ def remat(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return checkpoint(run, x, use_reentrant=False)
 
 
-# flax's lecun_normal is a normal truncated at ±2σ, σ rescaled by this
-# factor so that the draws' standard deviation is sqrt(1 / fan_in)
+# flax's lecun_normal and xavier_normal are normals truncated at ±2σ, σ
+# rescaled by this factor so that the draws' standard deviation is
+# sqrt(1 / fan_in), resp. sqrt(2 / (fan_in + fan_out))
 _TRUNCATED_STD = 0.87962566103423978
 
 
@@ -219,17 +273,18 @@ def init_weights_(net: nn.Module, generator: torch.Generator) -> None:
     (dct_tpu's ``conv_kernel_init``), N(0, std) or lecun-normal as their
     ``init`` says, Dense kernels lecun-normal, zero biases; BN scale drawn
     from N(1, 0.02) or ones as its ``scale_init`` says, zero BN bias; PReLU
-    α 0.25. lecun is flax's truncated normal; xavier is torch's plain
-    normal of flax's standard deviation, which flax truncates at ±2σ
-    (ROADMAP §3). Draws follow ``net.modules()`` order from ``generator``."""
+    α 0.25. lecun and xavier are flax's truncated normals
+    (``variance_scaling(1, "fan_in" | "fan_avg", "truncated_normal")``).
+    Draws follow ``net.modules()`` order from ``generator``."""
     for mod in net.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             init = getattr(mod, "init", "xavier")
-            if init == "xavier":
-                nn.init.xavier_normal_(mod.weight, generator=generator)
-            elif init == "lecun":       # a conv's or dense kernel's fan_in
-                fan_in = mod.weight.shape[1] * math.prod(mod.weight.shape[2:])
-                std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+            if init in ("xavier", "lecun"):
+                # a kernel's fans; under fan_avg their sum is the same in
+                # torch's transposed-conv (in, out, kh, kw) layout as in flax's
+                fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(mod.weight)
+                var = 2.0 / (fan_in + fan_out) if init == "xavier" else 1.0 / fan_in
+                std = math.sqrt(var) / _TRUNCATED_STD
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
             else:

@@ -78,6 +78,16 @@ class Segmentator:
         self.lr_fn = get_lr_schedule(scheduler_dict, float(optim_dict["lr"]))
         self.epoch = 0
 
+    def set_data_parallel(self, shard) -> None:
+        """Run every train-mode forward as this rank's chunk of a
+        data-parallel global batch (a ``parallel.data_parallel.DataShard``,
+        or None for one process): BatchNorm over the global batch, dropout
+        masks cut from the global batch's draw."""
+        for m in self._batch_norms:
+            m.group = None if shard is None or shard.n == 1 else shard.group
+        for m in self._dropouts:
+            m.shard = None if shard is None or shard.n == 1 else shard
+
     def apply_train(self, x: torch.Tensor, update_stats: bool = True,
                     groups: int = 1, dtype: Optional[torch.dtype] = None,
                     dropout_generator: Optional[torch.Generator] = None

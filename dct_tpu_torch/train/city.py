@@ -33,6 +33,12 @@ Checkpoints are dct_tpu's city payloads (``last_{i}.ckpt`` every epoch,
 ``best_{i}.ckpt`` on a better mean IoU), without Adam state. A resume, as
 in dct_tpu, reloads the weights and best scores, restarts Adam and the λ
 schedulers from scratch, and starts at the last file's ``best_epoch`` + 1.
+
+With a data-only ``mesh`` (both trainers) each rank trains on its data
+chunk of every index array, the adversarial ones included, the share of
+the data-parallel step (``parallel/data_parallel.py``); the flags stay
+whole; thetas and VAT noise are drawn for the global batch and sliced;
+rank 0 alone evaluates and writes.
 """
 from __future__ import annotations
 
@@ -52,10 +58,12 @@ from ..losses import jsd_2d, kl_div_2d
 from ..metrics import iou_from_confusion
 from ..models.segmentator import Segmentator
 from ..optim import build_optimizer, set_lr
+from ..parallel.data_parallel import DataShard
+from ..parallel.mesh import dp_shard_idx, is_main
 from ..schedules import get_weight_scheduler
 from ..utils.general import check_finite_losses, save_images
 from ..utils.logging import resume_records
-from .trainer import check_device, epoch_generator, make_save_dir, write_csv
+from .trainer import check_data_mesh, check_device, epoch_generator, make_save_dir, write_csv
 
 
 def make_city_eval_step(seg: Segmentator, C: int) -> Callable:
@@ -90,7 +98,7 @@ def make_city_pred_step(seg: Segmentator) -> Callable:
 
 def make_city_cotrain_epoch(segs: List[Segmentator], C: int, sup_loss: Callable,
                             train_jsd: bool, train_adv: bool, eps_fgsm: float,
-                            eps_vat: float, augment_fn=None) -> Callable:
+                            eps_vat: float, augment_fn=None, mesh=None) -> Callable:
     """The Cityscapes co-training epoch over the K models ``segs``.
 
     ``epoch(img_u8, gt_u8, idx_lab (T,K,B), idx_unlab (T,Bu), idx_adv_lab
@@ -102,10 +110,16 @@ def make_city_cotrain_epoch(segs: List[Segmentator], C: int, sup_loss: Callable,
     model 0, score model 1) and 1 (the reverse). ``augment_fn`` (a
     ``city_augment.ComposedAugment``) warps the labeled and unlabeled
     batches. ``vat_noise`` (T,2,B',H,W,3) and ``thetas`` (T, K·B+Bu, 2, 3),
-    when given, replace the draws from ``generator``.
+    when given, replace the draws from ``generator``. Given a data-only
+    ``mesh``, the indices are this rank's data chunks and the injected
+    draws the global batch's.
     """
     K = len(segs)
     assert not train_adv or K == 2, "the city adversarial term needs 2 models"
+    shard = DataShard.of(mesh)
+    for s in segs:
+        s.set_data_parallel(shard)
+    sup_share = shard.loss(sup_loss)
 
     def one_step(img_u8, gt_u8, idx_l, idx_u, idx_al, idx_au, flags, generator,
                  lam_cot, lam_adv, noise, th) -> Dict[str, torch.Tensor]:
@@ -114,8 +128,10 @@ def make_city_cotrain_epoch(segs: List[Segmentator], C: int, sup_loss: Callable,
                                            torch.cat([idx_l.reshape(-1), idx_u]))
         if augment_fn is not None:
             if th is None:
-                th = torch.cat([augment_fn.sample(generator, n, *img_u8.shape[1:3])
-                                for n in [B] * K + [Bu]])
+                th = torch.cat([shard.draw(lambda m: augment_fn.sample(
+                    generator, m, *img_u8.shape[1:3]), n) for n in [B] * K + [Bu]])
+            elif shard.n > 1:
+                th = th[shard.stream_rows([B] * K + [Bu], range(K + 1)).to(th.device)]
             gt_all[K * B:] = 0              # the unlabeled labels are not used
             img_all, gt_all = augment_fn.warp(img_all, gt_all, th)
         lab_img = img_all[:K * B].reshape((K, B) + img_all.shape[1:])
@@ -131,29 +147,34 @@ def make_city_cotrain_epoch(segs: List[Segmentator], C: int, sup_loss: Callable,
         else:
             lab_logits = [segs[k].apply_train(lab_img[k]) for k in range(K)]
             unlab_logits = [s.apply_train(unlab_img) for s in segs] if train_jsd else None
-        sup_each = torch.stack([sup_loss(lab_logits[k], lab_gt[k]) for k in range(K)])
+        sup_each = torch.stack([sup_share(lab_logits[k], lab_gt[k]) for k in range(K)])
         total = sup_each.sum()
         if train_jsd:
             probs = torch.stack([torch.softmax(lg, dim=-1) for lg in unlab_logits])
-            jsd_loss = jsd_2d(probs).mean()
+            jsd_loss = shard.mean(jsd_2d(probs))
             total = total + lam_cot * jsd_loss
         if train_adv:
             losses = []
             for direction, (atk, tgt) in enumerate(((0, 1), (1, 0))):
                 if flags[direction]:
                     clean, gt = normalize_gather(img_u8, gt_u8, idx_al[direction])
-                    adv, _, _ = fgsm(segs[atk], clean, gt, sup_loss, eps_fgsm,
+                    adv, _, _ = fgsm(segs[atk], clean, gt, sup_share, eps_fgsm,
                                      update_stats=False)
                 else:
                     clean, _ = normalize_gather(img_u8, gt_u8, idx_au[direction])
+                    d = None if noise is None else noise[direction].to(clean)
+                    if shard.n > 1:     # the global batch's noise, this rank's rows
+                        d = shard.draw(lambda n: torch.randn(
+                            (n,) + clean.shape[1:], generator=generator,
+                            device=clean.device, dtype=clean.dtype), clean.shape[0]) \
+                            if d is None else d[shard.rows(clean.shape[0])]
                     adv, _ = vat_perturbation(
-                        segs[atk], clean, epsilon=eps_vat, generator=generator,
-                        d=None if noise is None else noise[direction].to(clean),
-                        update_stats=False)
+                        segs[atk], clean, epsilon=eps_vat, generator=generator, d=d,
+                        update_stats=False, mean=shard.mean)
                 with torch.no_grad():
                     real = torch.softmax(segs[atk].apply_train(clean, update_stats=False), -1)
                 adv_logits = segs[tgt].apply_train(adv, update_stats=False)
-                losses.append(kl_div_2d(torch.softmax(adv_logits, -1), real).mean())
+                losses.append(shard.mean(kl_div_2d(torch.softmax(adv_logits, -1), real)))
             adv_loss = sum(losses) / len(losses)
             total = total + lam_adv * adv_loss
 
@@ -161,7 +182,11 @@ def make_city_cotrain_epoch(segs: List[Segmentator], C: int, sup_loss: Callable,
             s.optimizer.zero_grad(set_to_none=True)
         total.backward()
         for s in segs:
+            shard.sync_grads(s.net.parameters())
             s.optimizer.step()
+        if shard.n > 1:
+            losses = shard.total(torch.cat([sup_each, jsd_loss[None], adv_loss[None]]))
+            sup_each, jsd_loss, adv_loss = losses[:K], losses[K], losses[K + 1]
         return {"sup_loss": sup_each.detach(), "jsd_loss": jsd_loss.detach(),
                 "adv_loss": adv_loss.detach()}
 
@@ -210,7 +235,8 @@ class CoTrainerCity:
                  augmentations: Optional[dict] = None,
                  whole_config: Optional[dict] = None,
                  nan_policy: str = "warn",
-                 device=None) -> None:
+                 device=None,
+                 mesh=None) -> None:
         assert len(segmentators) == len(labeled_datasets)
         self.device = check_device(device, segmentators)
         self.K = len(segmentators)
@@ -218,7 +244,10 @@ class CoTrainerCity:
         self.seg = segmentators[0]
         self.criterions = criterions
         self.max_epoch = max_epoch
-        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml")
+        self.mesh = check_data_mesh(mesh, batch_size)
+        self.is_main = is_main()
+        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml",
+                                      write=self.is_main)
         self.C = self.seg.arch_dict["num_classes"]
         self.metricname = metricname
         self.batch_size = batch_size
@@ -278,19 +307,31 @@ class CoTrainerCity:
         """Train from ``start_epoch`` to ``max_epoch``; returns the CSV's rows."""
         epoch_fn = make_city_cotrain_epoch(
             self.segmentators, self.C, self.criterions["sup"], train_jsd, train_adv,
-            self.eps_fgsm, self.eps_vat, augment_fn=self.augment_fn)
-        records = resume_records(self.save_dir / self.metricname, self.start_epoch)
+            self.eps_fgsm, self.eps_vat, augment_fn=self.augment_fn, mesh=self.mesh)
+        records = resume_records(self.save_dir / self.metricname, self.start_epoch) \
+            if self.is_main else []
         for epoch in range(self.start_epoch, self.max_epoch):
             t0 = time.perf_counter()
             T = self.iters_per_epoch
             idx_lab, idx_unlab, *adv_draws = self.draw_indices(T)
-            metrics = epoch_fn(self._img_cat, self._gt_cat, idx_lab, idx_unlab, *adv_draws,
+            local = [idx_lab, idx_unlab] + adv_draws
+            if self.mesh is not None:       # the flags stay whole
+                local = [dp_shard_idx(self.mesh, a) for a in local[:4]] + local[4:]
+            metrics = epoch_fn(self._img_cat, self._gt_cat, *local,
                                epoch_generator(self.device, self.seed, epoch),
                                self.seg.lr(epoch), self.cot_scheduler.value,
                                self.adv_scheduler.value)
             # the fetch waits for the device, so the clock stops after it
             m = {k: v.cpu().numpy() for k, v in metrics.items()}
             t_train = time.perf_counter() - t0
+            if not self.is_main:
+                for s in self.segmentators:
+                    s.scheduler_step()
+                self.cot_scheduler.step()
+                self.adv_scheduler.step()
+                check_finite_losses({"sup": m["sup_loss"], "jsd": m["jsd_loss"],
+                                     "adv": m["adv_loss"]}, epoch, self.nan_policy)
+                continue
             t_eval0 = time.perf_counter()
             val = self._eval_epoch()
             t_eval = time.perf_counter() - t_eval0

@@ -19,6 +19,16 @@ unlabeled streams live in one uint8 array on the device, indexed with
 per-stream offsets as in dct_tpu. Epoch e's augmentation draws come from a
 torch generator seeded with ``fold_in(seed, e)``, so a resumed run draws
 what an unbroken run would have drawn.
+
+With a ``mesh`` (``parallel.mesh``) the trainer runs on every rank of a
+``torch.distributed`` group: a data-only mesh runs the data-parallel step
+(``steps.make_cotrain_epoch(mesh=)``, equal to the single-process step), a
+model axis above 1 the model-parallel one (``parallel.shard_cotrain``).
+Every rank makes the same host draws and takes its slice
+(``place_batches``). After each epoch of the model-parallel step rank 0
+receives the models it does not own from their owners; rank 0 alone
+evaluates, prints and writes files. A resume loads the same files on
+every rank.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from ..data.dataset import MedicalImageDataset
 from ..data.pipeline import DeviceDataset, InfiniteBatcher, PatientBuckets
 from ..models.segmentator import Segmentator
 from ..optim import build_optimizer
+from ..parallel.mesh import gather_models, is_main, place_batches
+from ..parallel.shard_cotrain import make_shard_cotrain_epoch
 from ..schedules import get_weight_scheduler
 from ..utils.convert import load_optim_state, stack_optim_states, unstack_optim_state
 from ..utils.general import check_finite_losses, save_images
@@ -71,7 +83,8 @@ class CoTrainer:
                  whole_config: Optional[dict] = None,
                  fuse_forward: bool = True,
                  adv_dtype: Optional[str] = None,
-                 device=None) -> None:
+                 device=None,
+                 mesh=None) -> None:
         assert len(segmentators) == len(labeled_datasets)
         assert len(segmentators) >= 1
         assert len({id(s) for s in segmentators}) == len(segmentators)
@@ -83,7 +96,9 @@ class CoTrainer:
         self.seg = segmentators[0]
         self.criterions = criterions
         self.max_epoch = max_epoch
-        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml")
+        self.is_main = is_main()
+        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml",
+                                      write=self.is_main)
         self.C = self.seg.arch_dict["num_classes"]
         self.axises = axises if axises is not None else [1, 2, 3]
         self.metricname = metricname
@@ -91,6 +106,14 @@ class CoTrainer:
         self.nan_policy = nan_policy
         self.batch_size = batch_size
         self.unlab_batch_size = unlab_batch_size or batch_size
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh.shape["model"] > 1
+        if mesh is not None:
+            assert self.K % mesh.shape["model"] == 0, \
+                f"K={self.K} not divisible by mesh model axis {mesh.shape['model']}"
+            assert self.batch_size % mesh.shape["data"] == 0 and \
+                self.unlab_batch_size % mesh.shape["data"] == 0, \
+                (self.batch_size, self.unlab_batch_size, mesh.shape)
         self.best_scores = np.zeros(self.K)
         self.start_epoch = 0
         self.seed = seed
@@ -136,18 +159,28 @@ class CoTrainer:
                        augment_labeled_data: bool = False,
                        augment_unlabeled_data: bool = False) -> List[dict]:
         """Train from ``start_epoch`` to ``max_epoch``; returns the CSV's rows."""
-        epoch_fn = make_cotrain_epoch(
-            self.segmentators, self.C, self.criterions["sup"], train_jsd,
-            train_adv, augment_labeled_data, augment_unlabeled_data, self.eps_fgsm,
-            fuse_forward=self.fuse_forward, adv_dtype=self.adv_dtype)
-        records = resume_records(self.save_dir / self.metricname, self.start_epoch)
-        self.writer = ScalarWriter(self.save_dir)
+        if self.sharded:
+            # dct_tpu's shard path takes the labeled flag for both streams
+            epoch_fn = make_shard_cotrain_epoch(
+                self.segmentators, self.mesh, self.C, self.criterions["sup"],
+                train_jsd, train_adv, augment_labeled_data, self.eps_fgsm,
+                fuse_forward=self.fuse_forward, adv_dtype=self.adv_dtype)
+        else:
+            epoch_fn = make_cotrain_epoch(
+                self.segmentators, self.C, self.criterions["sup"], train_jsd,
+                train_adv, augment_labeled_data, augment_unlabeled_data, self.eps_fgsm,
+                fuse_forward=self.fuse_forward, adv_dtype=self.adv_dtype,
+                mesh=self.mesh)
+        records = resume_records(self.save_dir / self.metricname, self.start_epoch) \
+            if self.is_main else []
+        self.writer = ScalarWriter(self.save_dir) if self.is_main else None
         try:
             for epoch in range(self.start_epoch, self.max_epoch):
                 self._run_epoch(epoch, epoch_fn, records, train_jsd, train_adv,
                                 save_train, save_val)
         finally:
-            self.writer.close()
+            if self.writer is not None:
+                self.writer.close()
         return records
 
     def _run_epoch(self, epoch, epoch_fn, records, train_jsd, train_adv,
@@ -158,6 +191,11 @@ class CoTrainer:
                              "jsd": train_m["jsd_loss"],
                              "adv": train_m["adv_loss"]},
                             epoch, self.nan_policy)
+        if self.sharded:
+            gather_models(self.segmentators, self.mesh)
+        if not self.is_main:
+            self._scheduler_step()
+            return
         if save_train:
             self._save_train_predictions(epoch, train_jsd)
         t_eval0 = time.perf_counter()
@@ -232,6 +270,10 @@ class CoTrainer:
         lam_cot = self.cot_scheduler.value
         lam_adv = self.adv_scheduler.value
 
+        n_images = idx_lab.size + (idx_unlab.size if (train_jsd or train_adv) else 0)
+        if self.mesh is not None:
+            idx_lab, idx_unlab, pairs = place_batches(self.mesh, idx_lab, idx_unlab, pairs)
+
         t0 = time.perf_counter()
         metrics = epoch_fn(self._img_cat, self._gt_cat, idx_lab, idx_unlab,
                            pairs, generator, lr, lam_cot, lam_adv)
@@ -239,12 +281,14 @@ class CoTrainer:
         # the clock stops after it
         m = {k: v.cpu().numpy() for k, v in metrics.items()}
         train_time = time.perf_counter() - t0
-        n_images = idx_lab.size + (idx_unlab.size if (train_jsd or train_adv) else 0)
+        # the model-parallel adv slots hold KL / K_local: their sum over K is
+        # the iteration's KL
+        adv = np.sum(m["adv_loss"], 1) if self.sharded else m["adv_loss"]
         return {"lab_dice": m["lab_dice"].transpose(1, 0, 2, 3).reshape(
                     self.K, -1, self.C).mean(1),
                 "sup_loss": m["sup_loss"].mean(0),
                 "jsd_loss": float(np.mean(m["jsd_loss"])),
-                "adv_loss": float(np.mean(m["adv_loss"])),
+                "adv_loss": float(np.mean(adv)),
                 "n_images": n_images, "train_time": train_time}
 
     _DUMP_CHUNK = 16   # padded slice-chunk length for whole-stream dumps
@@ -334,7 +378,8 @@ class CoTrainer:
             self.cot_scheduler.load_state_dict(sd["cot_scheduler"])
             self.adv_scheduler.load_state_dict(sd["adv_scheduler"])
             self.segmentators[i].epoch = self.start_epoch
-            print(f">>> {p} loaded (best {self.best_scores[i]:.3f})")
+            if self.is_main:
+                print(f">>> {p} loaded (best {self.best_scores[i]:.3f})")
         opt_path = Path(checkpoint_dir) / "opt_state.ckpt"
         if not opt_path.exists():
             return
@@ -353,4 +398,5 @@ class CoTrainer:
             # dct_tpu does with an unreadable file
             for seg in self.segmentators:
                 seg.optimizer = build_optimizer(seg.optim_dict, seg.net.parameters())
-            print(f">>> opt_state.ckpt unreadable ({e}); reinitializing optimizer")
+            if self.is_main:
+                print(f">>> opt_state.ckpt unreadable ({e}); reinitializing optimizer")

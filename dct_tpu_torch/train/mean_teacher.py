@@ -17,6 +17,12 @@ teacher's against the original ones. Eval, the best checkpoint and the CSV
 use the teacher. The thetas of iteration t draw from the epoch's torch
 generator, labeled view first; host draws and the shared device array are
 as in ``vat.py``.
+
+With a data-only ``mesh`` each rank trains on its data chunk the share of
+the data-parallel step (``parallel/data_parallel.py``): the student's and
+the teacher's BatchNorm over the global batch, thetas and dropout masks
+drawn for the global batch and sliced, the student's gradients summed over
+the ranks; rank 0 alone evaluates and writes.
 """
 from __future__ import annotations
 
@@ -35,34 +41,43 @@ from ..data.pipeline import (DeviceDataset, InfiniteBatcher, PatientBuckets,
 from ..losses import mse_probs
 from ..models.segmentator import Segmentator
 from ..optim import set_lr
+from ..parallel.data_parallel import DataShard
+from ..parallel.mesh import dp_shard_idx, is_main
 from ..schedules import get_weight_scheduler
 from ..utils.general import check_finite_losses
 from ..utils.logging import resume_records
-from .steps import _dice_rows, make_eval_all_step
-from .trainer import (DEFAULT_GRP_REGEX, check_device, concat_streams,
+from .steps import _dice_rows, make_eval_all_step, shard_thetas
+from .trainer import (DEFAULT_GRP_REGEX, check_data_mesh, check_device, concat_streams,
                       epoch_generator, eval_dice, make_save_dir, write_csv)
 
 
 def make_mean_teacher_epoch(student: Segmentator, teacher: Segmentator,
                             sup_loss: Callable, C: int,
-                            ema_alpha: float = 0.99) -> Callable:
+                            ema_alpha: float = 0.99, mesh=None) -> Callable:
     """``epoch(img_u8, gt_u8, idx_lab (T,B), idx_unlab (T,Bu), generator,
     lr, lam_con, thetas=None, thetas_u=None)`` trains the student and
     moves the teacher in place; returns {sup_loss (T,), con_loss (T,),
     student_dice (T,B,C), teacher_dice (T,B,C)} on the device. ``thetas``
     (T,B,2,3) and ``thetas_u`` (T,Bu,2,3), when given, replace the draws
-    from ``generator``."""
+    from ``generator``. Given a data-only ``mesh``, the indices are this
+    rank's data chunk and the injected thetas the global batch's."""
     s_params = list(student.net.parameters())
     t_params = list(teacher.net.parameters())
+    shard = DataShard.of(mesh)
+    student.set_data_parallel(shard)
+    teacher.set_data_parallel(shard)
+    sup_share, mse_share = shard.loss(sup_loss), shard.loss(mse_probs)
 
     def one_step(img_u8, gt_u8, idx_l, idx_u, generator, t, lam_con, th, th_u):
         img_o, gt_o = normalize_gather(img_u8, gt_u8, idx_l)
         b, h, w = gt_o.shape
+        th = shard_thetas(shard, generator, b, img_u8, th)
         if th is None:
             th = sample_aug_thetas(generator, b, h, w)
         img_s = apply_thetas(img_o, th, "bilinear")
         gt_s = apply_thetas(gt_o.float(), th, "nearest").long()
         u_img_o, _ = normalize_gather(img_u8, gt_u8, idx_u)
+        th_u = shard_thetas(shard, generator, u_img_o.shape[0], img_u8, th_u)
         if th_u is None:
             th_u = sample_aug_thetas(generator, u_img_o.shape[0], h, w)
         u_img_s = apply_thetas(u_img_o, th_u, "bilinear")
@@ -78,19 +93,20 @@ def make_mean_teacher_epoch(student: Segmentator, teacher: Segmentator,
         # there, as in dct_tpu
         s_logits = student.apply_train(
             img_s, dropout_generator=student.dropout_generator(generator, t, 2))
-        sup = sup_loss(s_logits, gt_s)
+        sup = sup_share(s_logits, gt_s)
         su_logits = student.apply_train(
             u_img_s, dropout_generator=student.dropout_generator(generator, t, 3))
-        con = (mse_probs(torch.softmax(s_logits, dim=-1), t_probs_aug)
-               + mse_probs(torch.softmax(su_logits, dim=-1), tu_probs_aug))
+        con = (mse_share(torch.softmax(s_logits, dim=-1), t_probs_aug)
+               + mse_share(torch.softmax(su_logits, dim=-1), tu_probs_aug))
         total = sup + lam_con * con
         student.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        shard.sync_grads(s_params)
         student.optimizer.step()
         with torch.no_grad():          # EMA after the student's step
             torch._foreach_mul_(t_params, ema_alpha)
             torch._foreach_add_(t_params, s_params, alpha=1 - ema_alpha)
-        return {"sup_loss": sup.detach(), "con_loss": con.detach(),
+        return {"sup_loss": shard.total(sup), "con_loss": shard.total(con),
                 "student_dice": _dice_rows(s_logits.detach(), gt_s, C),
                 "teacher_dice": _dice_rows(t_logits, gt_o, C)}
 
@@ -106,7 +122,10 @@ def make_mean_teacher_epoch(student: Segmentator, teacher: Segmentator,
                           None if thetas is None else thetas[t].to(dev),
                           None if thetas_u is None else thetas_u[t].to(dev))
                  for t in range(idx_lab.shape[0])]
-        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        out = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        for k in ("student_dice", "teacher_dice"):
+            out[k] = shard.whole(out[k], dim=1)
+        return out
 
     return epoch
 
@@ -130,13 +149,17 @@ class MeanTeacherTrainer:
                  seed: int = 1234,
                  whole_config: Optional[dict] = None,
                  nan_policy: str = "warn",
-                 device=None) -> None:
+                 device=None,
+                 mesh=None) -> None:
         self.device = check_device(device, [student_segmentator, teacher_segmentator])
         self.student = student_segmentator
         self.teacher = teacher_segmentator
         self.criterions = criterions
         self.max_epoch = max_epoch
-        self.save_dir = make_save_dir(save_dir, whole_config, "mt_config.yml")
+        self.mesh = check_data_mesh(mesh, batch_size)
+        self.is_main = is_main()
+        self.save_dir = make_save_dir(save_dir, whole_config, "mt_config.yml",
+                                      write=self.is_main)
         self.C = student_segmentator.arch_dict["num_classes"]
         self.axises = axises if axises is not None else [1, 2, 3]
         self.metricname = metricname
@@ -161,21 +184,32 @@ class MeanTeacherTrainer:
         self.val_buckets = PatientBuckets(val_dataset, grp_regex)
         self.eval_all = make_eval_all_step(self.teacher, self.C)
         self.epoch_fn = make_mean_teacher_epoch(self.student, self.teacher,
-                                                criterions["sup"], self.C, ema_alpha)
+                                                criterions["sup"], self.C, ema_alpha,
+                                                mesh=self.mesh)
         if checkpoint is not None:
             self._load_checkpoint(checkpoint)
 
     def start_training(self) -> List[dict]:
         """Train from ``start_epoch`` to ``max_epoch``; returns the CSV's rows."""
-        records = resume_records(self.save_dir / self.metricname, self.start_epoch)
+        records = resume_records(self.save_dir / self.metricname, self.start_epoch) \
+            if self.is_main else []
         for epoch in range(self.start_epoch, self.max_epoch):
             t0 = time.perf_counter()
             idx_lab, idx_unlab = self.draw_indices()
-            metrics = self.epoch_fn(self._img_cat, self._gt_cat, idx_lab, idx_unlab,
+            local = (idx_lab, idx_unlab) if self.mesh is None else \
+                (dp_shard_idx(self.mesh, idx_lab), dp_shard_idx(self.mesh, idx_unlab))
+            metrics = self.epoch_fn(self._img_cat, self._gt_cat, *local,
                                     epoch_generator(self.device, self.seed, epoch),
                                     self.student.lr(epoch), self.con_scheduler.value)
             m = {k: v.cpu().numpy() for k, v in metrics.items()}
             t_train = time.perf_counter() - t0
+            if not self.is_main:
+                check_finite_losses({"sup": m["sup_loss"], "con": m["con_loss"]},
+                                    epoch, self.nan_policy)
+                self.student.scheduler_step()
+                self.teacher.scheduler_step()
+                self.con_scheduler.step()
+                continue
             t_eval0 = time.perf_counter()
             val = eval_dice(self.eval_all, self.val_dev, self.val_buckets)
             t_eval = time.perf_counter() - t_eval0
@@ -237,4 +271,5 @@ class MeanTeacherTrainer:
         self.best_score = float(sd["metric"])
         self.start_epoch = int(sd["epoch"]) + 1
         self.con_scheduler.load_state_dict(sd["con_scheduler"])
-        print(f">>> {checkpoint} loaded (best {self.best_score:.3f})")
+        if self.is_main:
+            print(f">>> {checkpoint} loaded (best {self.best_score:.3f})")

@@ -60,6 +60,7 @@ from ..data.pipeline import gather_augment_u8, normalize_gather
 from ..losses import jsd_2d, kl_div_2d
 from ..models.segmentator import Segmentator, as_dtype
 from ..optim import set_lr
+from ..parallel.data_parallel import DataShard
 from ..utils.general import class2one_hot, dice_coef, probs2one_hot
 
 
@@ -81,14 +82,20 @@ def _dice_rows(logits: torch.Tensor, gt: torch.Tensor, C: int) -> torch.Tensor:
 
 
 def make_supervised_epoch(seg: Segmentator, loss_fn: Callable, C: int,
-                          augment: bool) -> Callable:
+                          augment: bool, mesh=None) -> Callable:
     """``epoch(img_u8, gt_u8, idx (T,B), generator, lr, thetas=None)`` trains
     ``seg`` in place and returns {loss (T,), dice (T,B,C)} on the device.
     ``thetas`` (T,B,2,3), when given, replaces the augmentation draws from
     ``generator``. An arch with dropout draws step t's masks from a
     generator seeded from ``generator``'s seed, t and 1 (dct_tpu's
     ``fold_in(k, 1)``); the only one of the port's training steps that
-    passes one, with the Mean-Teacher student, as in dct_tpu."""
+    passes one, with the Mean-Teacher student, as in dct_tpu. Given a
+    data-only ``mesh``, ``idx`` is this rank's data chunk and the epoch is
+    its share of the data-parallel epoch, as in ``make_cotrain_epoch``
+    (``thetas`` in the global layout)."""
+    shard = DataShard.of(mesh)
+    seg.set_data_parallel(shard)
+    loss_share = shard.loss(loss_fn)
 
     def epoch(img_u8: torch.Tensor, gt_u8: torch.Tensor, idx,
               generator: Optional[torch.Generator], lr: float,
@@ -98,28 +105,45 @@ def make_supervised_epoch(seg: Segmentator, loss_fn: Callable, C: int,
         steps = []
         for t in range(idx.shape[0]):
             if augment:
-                img, gt = gather_augment_u8(img_u8, gt_u8, idx[t], generator,
-                                            thetas=None if thetas is None else thetas[t])
+                th = shard_thetas(shard, generator, idx.shape[1], img_u8,
+                                  None if thetas is None else thetas[t])
+                img, gt = gather_augment_u8(img_u8, gt_u8, idx[t], generator, thetas=th)
             else:
                 img, gt = normalize_gather(img_u8, gt_u8, idx[t])
             logits = seg.apply_train(
                 img, dropout_generator=seg.dropout_generator(generator, t, 1))
-            loss = loss_fn(logits, gt)
+            loss = loss_share(logits, gt)
             seg.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            shard.sync_grads(seg.net.parameters())
             seg.optimizer.step()
-            steps.append({"loss": loss.detach(),
-                          "dice": _dice_rows(logits.detach(), gt, C)})
-        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+            steps.append({"loss": shard.total(loss), "dice": _dice_rows(logits.detach(), gt, C)})
+        out = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        out["dice"] = shard.whole(out["dice"], dim=1)
+        return out
 
     return epoch
+
+
+def shard_thetas(shard: DataShard, generator, n_local: int, img_u8: torch.Tensor,
+                 thetas: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """One stream's augmentation thetas for this rank's ``n_local`` rows:
+    ``thetas`` (the global batch's) or a draw for the global batch, cut to
+    the rank's rows. In one process, ``thetas`` as given (None: the caller
+    draws)."""
+    if shard.n == 1:
+        return thetas
+    if thetas is None:
+        return shard.draw(lambda n: sample_aug_thetas(generator, n, img_u8.shape[1],
+                                                      img_u8.shape[2]), n_local)
+    return thetas[shard.rows(n_local)]
 
 
 def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
                        sup_loss: Callable, train_jsd: bool, train_adv: bool,
                        augment_labeled: bool, augment_unlabeled: bool,
                        eps_fgsm: float = 0.03, fuse_forward: bool = True,
-                       adv_dtype=None) -> Callable:
+                       adv_dtype=None, mesh=None) -> Callable:
     """Build the co-training epoch over the K models ``segs``.
 
     ``epoch(img_u8, gt_u8, idx_lab (T,K,B), idx_unlab (T,Bu), pairs (T,2)
@@ -130,11 +154,25 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
     ``thetas`` (T, K·B+Bu, 2, 3), when given, replaces the augmentation
     draws from ``generator``. ``fuse_forward`` and ``adv_dtype`` (a dtype
     or its name) are dct_tpu's, as the module docstring says.
+
+    Given a data-only ``mesh`` (``parallel.mesh``), the epoch is this
+    rank's share of the data-parallel epoch, equal to the single-process
+    one up to the order of reductions (``parallel/data_parallel.py``): it
+    takes this rank's data chunk of the indices (``place_batches``), the
+    thetas in the global layout (drawn for the global batch when not
+    given), sets the models' BatchNorm to the global batch, sums the
+    gradients over the data ranks, and returns the global metrics.
     """
     K = len(segs)
     adv_dtype = as_dtype(adv_dtype)
     if adv_dtype == segs[0].compute_dtype:
         adv_dtype = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise ValueError("a model axis above 1 runs parallel.shard_cotrain")
+    shard = DataShard.of(mesh)
+    for s in segs:
+        s.set_data_parallel(shard)
+    sup_share = shard.loss(sup_loss)
 
     def one_step(img_u8, gt_u8, idx_l, idx_u, pair, generator, lam_cot,
                  lam_adv, th) -> Dict[str, torch.Tensor]:
@@ -143,8 +181,10 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
             img_u8, gt_u8, torch.cat([idx_l.reshape(-1), idx_u]))
         if augment_labeled or augment_unlabeled:
             if th is None:
-                th = sample_aug_thetas(generator, K * B + Bu, img_u8.shape[1],
-                                       img_u8.shape[2])
+                th = sample_aug_thetas(generator, (K * B + Bu) * shard.n,
+                                       img_u8.shape[1], img_u8.shape[2])
+            if shard.n > 1:
+                th = th[shard.stream_rows([B] * K + [Bu], range(K + 1)).to(th.device)]
             rows = slice(0 if augment_labeled else K * B,
                          None if augment_unlabeled else K * B)
             img_all[rows], gt_all[rows] = augment_batch_with_thetas(
@@ -168,29 +208,33 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
             if train_jsd:
                 # (2) the unlabeled batch through every model
                 unlab_logits = [s.apply_train(unlab_img) for s in segs]
-        sup_each = torch.stack([sup_loss(lab_logits[k], lab_gt[k])
+        sup_each = torch.stack([sup_share(lab_logits[k], lab_gt[k])
                                 for k in range(K)])
         total = sup_each.sum()
         if train_jsd:
             # JSD across models on the shared unlabeled batch
             probs = torch.stack([torch.softmax(lg, dim=-1) for lg in unlab_logits])
-            jsd_loss = jsd_2d(probs).mean()
+            jsd_loss = shard.mean(jsd_2d(probs))
             total = total + lam_cot * jsd_loss
         if train_adv:
             # (3) FGSM diversity: attack model b, feed the result to model a
             a, b = (0, 1) if K == 2 else (int(pair[0]), int(pair[1]))
             adv_img, _, real_probs = fgsm(
                 segs[b], torch.cat([lab_img[b], unlab_img], dim=0), lab_gt[b],
-                sup_loss, eps_fgsm, dtype=adv_dtype)
+                sup_share, eps_fgsm, dtype=adv_dtype)
             adv_logits = segs[a].apply_train(adv_img, dtype=adv_dtype)
-            adv_loss = kl_div_2d(torch.softmax(adv_logits, dim=-1), real_probs).mean()
+            adv_loss = shard.mean(kl_div_2d(torch.softmax(adv_logits, dim=-1), real_probs))
             total = total + lam_adv * adv_loss
 
         for s in segs:
             s.optimizer.zero_grad(set_to_none=True)
         total.backward()
         for s in segs:
+            shard.sync_grads(s.net.parameters())
             s.optimizer.step()
+        if shard.n > 1:
+            losses = shard.total(torch.cat([sup_each, jsd_loss[None], adv_loss[None]]))
+            sup_each, jsd_loss, adv_loss = losses[:K], losses[K], losses[K + 1]
 
         lab_dice = torch.stack([_dice_rows(lab_logits[k].detach(), lab_gt[k], C)
                                 for k in range(K)])
@@ -225,7 +269,10 @@ def make_cotrain_epoch(segs: Sequence[Segmentator], C: int,
                           lam_cot, lam_adv,
                           None if thetas is None else thetas[t])
                  for t in range(idx_lab.shape[0])]
-        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        out = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        for k in ("lab_dice", "unlab_dice"):          # rows (T, K, B, C)
+            out[k] = shard.whole(out[k], dim=2)
+        return out
 
     return epoch
 

@@ -9,6 +9,12 @@ dct_tpu's columns, the val/train dice histories as .npy, and ``last.ckpt``
 plus ``best.ckpt`` keyed on mean foreground 2D val dice. A checkpoint
 resumes the weights, the optimizer, the LR epoch and the best score.
 
+With a data-only ``mesh`` (``parallel.mesh``) every rank makes the same
+host draws, trains on its data chunk of each batch (``dp_shard_idx``) the
+share of the data-parallel step (``steps.make_supervised_epoch(mesh=)``),
+and rank 0 alone evaluates, prints and writes files, as in the
+co-training trainer.
+
 The helpers at the bottom are shared with the VAT and Mean-Teacher
 trainers.
 """
@@ -27,6 +33,7 @@ from ..config import save_yaml
 from ..data.dataset import MedicalImageDataset
 from ..data.pipeline import DeviceDataset, EpochBatcher, PatientBuckets
 from ..models.segmentator import Segmentator
+from ..parallel.mesh import dp_shard_idx, is_main
 from ..utils.general import check_finite_losses, fold_in, save_images
 from ..utils.logging import resume_records, write_metrics_csv
 from .steps import make_eval_all_step, make_eval_patient_step, make_supervised_epoch
@@ -49,12 +56,16 @@ class Trainer:
                  seed: int = 1234,
                  whole_config: Optional[dict] = None,
                  nan_policy: str = "warn",
-                 device=None) -> None:
+                 device=None,
+                 mesh=None) -> None:
         self.device = check_device(device, [segmentator])
         self.segmentator = segmentator
         self.criterion = criterion
         self.max_epoch = max_epoch
-        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml")
+        self.mesh = check_data_mesh(mesh, batch_size)
+        self.is_main = is_main()
+        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml",
+                                      write=self.is_main)
         self.C = segmentator.arch_dict["num_classes"]
         self.axises = axises if axises is not None else list(range(1, self.C))
         self.metricname = metricname
@@ -82,12 +93,16 @@ class Trainer:
         """Train from ``start_epoch`` to ``max_epoch``; returns the CSV's
         rows. ``save_train`` is accepted and unused, as in dct_tpu."""
         epoch_fn = make_supervised_epoch(self.segmentator, self.criterion, self.C,
-                                         augment_labeled_data)
-        records = resume_records(self.save_dir / self.metricname, self.start_epoch)
+                                         augment_labeled_data, mesh=self.mesh)
+        records = resume_records(self.save_dir / self.metricname, self.start_epoch) \
+            if self.is_main else []
         for epoch in range(self.start_epoch, self.max_epoch):
             t0 = time.perf_counter()
             train_m = self._train_epoch(epoch, epoch_fn)
             check_finite_losses({"train": train_m["loss"]}, epoch, self.nan_policy)
+            if not self.is_main:
+                self.segmentator.scheduler_step()
+                continue
             t_eval0 = time.perf_counter()
             val_m = self._eval_epoch(epoch, save_val)
             t_eval = time.perf_counter() - t_eval0
@@ -123,6 +138,9 @@ class Trainer:
 
     def _train_epoch(self, epoch: int, epoch_fn: Callable) -> Dict:
         idx = self.draw_indices()
+        n_images = idx.size
+        if self.mesh is not None:
+            idx = dp_shard_idx(self.mesh, idx)
         generator = epoch_generator(self.device, self.seed, epoch)
         lr = self.segmentator.lr(epoch)
         t0 = time.perf_counter()
@@ -131,7 +149,7 @@ class Trainer:
         m = {k: v.cpu().numpy() for k, v in metrics.items()}
         train_time = time.perf_counter() - t0
         return {"dice_per_class": m["dice"].reshape(-1, self.C).mean(0),
-                "loss": float(np.mean(m["loss"])), "n_images": idx.size,
+                "loss": float(np.mean(m["loss"])), "n_images": n_images,
                 "train_time": train_time}
 
     def _eval_epoch(self, epoch: int, save: bool = False) -> Dict:
@@ -164,8 +182,19 @@ class Trainer:
         self.segmentator.load_state_dict(sd["segmentator"])
         self.best_score = float(sd["best_score"])
         self.start_epoch = int(sd["best_epoch"]) + 1
-        print(f">>> {checkpoint} loaded. Best {self.best_score:.3f} "
-              f"@ epoch {sd['best_epoch']}")
+        if self.is_main:
+            print(f">>> {checkpoint} loaded. Best {self.best_score:.3f} "
+                  f"@ epoch {sd['best_epoch']}")
+
+
+def check_data_mesh(mesh, *batch_sizes):
+    """A single-model trainer's mesh: data-only, every batch divisible
+    into its data chunks."""
+    if mesh is not None:
+        assert mesh.shape["model"] == 1, "a single-model trainer takes a data-only mesh"
+        for b in batch_sizes:
+            assert b % mesh.shape["data"] == 0, (b, mesh.shape)
+    return mesh
 
 
 def check_device(device, segmentators: List[Segmentator]) -> torch.device:
@@ -178,12 +207,14 @@ def check_device(device, segmentators: List[Segmentator]) -> torch.device:
 
 
 def make_save_dir(save_dir: Union[str, Path], whole_config: Optional[dict],
-                  config_name: str) -> Path:
-    """Create the run directory and save the run's config in it."""
+                  config_name: str, write: bool = True) -> Path:
+    """Create the run directory and save the run's config in it (unless
+    ``write`` is False: a rank other than 0 only names it)."""
     path = Path(save_dir)
-    path.mkdir(parents=True, exist_ok=True)
-    if whole_config:
-        save_yaml(whole_config, path / config_name)
+    if write:
+        path.mkdir(parents=True, exist_ok=True)
+        if whole_config:
+            save_yaml(whole_config, path / config_name)
     return path
 
 

@@ -17,6 +17,11 @@ batches from the labeled stream, then T from the unlabeled one, T =
 len(labeled) // B. Labeled and unlabeled slices share one device array,
 unlabeled indices offset by ``len(labeled)``. Epoch e's augmentation and
 VAT noise draw from a torch generator seeded with ``fold_in(seed, e)``.
+
+With a data-only ``mesh`` each rank trains on its data chunk the share of
+the data-parallel step (``parallel/data_parallel.py``): BatchNorm over the
+global batch, thetas and VAT noise drawn for the global batch and sliced,
+gradients summed over the ranks; rank 0 alone evaluates and writes.
 """
 from __future__ import annotations
 
@@ -35,49 +40,64 @@ from ..data.pipeline import (DeviceDataset, InfiniteBatcher, PatientBuckets,
 from ..losses import kl_div_2d
 from ..models.segmentator import Segmentator
 from ..optim import set_lr
+from ..parallel.data_parallel import DataShard
+from ..parallel.mesh import dp_shard_idx, is_main
 from ..schedules import get_weight_scheduler
 from ..utils.general import check_finite_losses
 from ..utils.logging import resume_records
-from .steps import _dice_rows, make_eval_all_step
-from .trainer import (DEFAULT_GRP_REGEX, check_device, concat_streams,
+from .steps import _dice_rows, make_eval_all_step, shard_thetas
+from .trainer import (DEFAULT_GRP_REGEX, check_data_mesh, check_device, concat_streams,
                       epoch_generator, eval_dice, make_save_dir, write_csv)
 
 
 def make_vat_epoch(seg: Segmentator, sup_loss: Callable, C: int,
                    train_adv: bool, augment_labeled: bool,
                    augment_unlabeled: bool, eps: float, xi: float,
-                   ip: int) -> Callable:
+                   ip: int, mesh=None) -> Callable:
     """``epoch(img_u8, gt_u8, idx_lab (T,B), idx_unlab (T,Bu), generator,
     lr, lam_adv, thetas_lab=None, thetas_unlab=None, noise=None)`` trains
     ``seg`` in place and returns {sup_loss (T,), adv_loss (T,), dice
     (T,B,C)} on the device. ``thetas_lab`` (T,B,2,3), ``thetas_unlab``
     (T,Bu,2,3) and the VAT starting noise ``noise`` (T,Bu,H,W,1), when
-    given, replace the draws from ``generator``."""
+    given, replace the draws from ``generator``. Given a data-only
+    ``mesh``, the indices are this rank's data chunk and the injected draws
+    the global batch's."""
+    shard = DataShard.of(mesh)
+    seg.set_data_parallel(shard)
+    sup_share = shard.loss(sup_loss)
 
     def one_step(img_u8, gt_u8, idx_l, idx_u, generator, lam_adv, th_l, th_u, d):
         if augment_labeled:
+            th_l = shard_thetas(shard, generator, idx_l.shape[0], img_u8, th_l)
             img, gt = gather_augment_u8(img_u8, gt_u8, idx_l, generator, thetas=th_l)
         else:
             img, gt = normalize_gather(img_u8, gt_u8, idx_l)
         logits = seg.apply_train(img)
-        sup = sup_loss(logits, gt)
+        sup = sup_share(logits, gt)
         total, adv = sup, torch.zeros((), device=img.device)
         if train_adv:
             if augment_unlabeled:
+                th_u = shard_thetas(shard, generator, idx_u.shape[0], img_u8, th_u)
                 u_img, _ = gather_augment_u8(img_u8, gt_u8, idx_u, generator, thetas=th_u)
             else:
                 u_img, _ = normalize_gather(img_u8, gt_u8, idx_u)
+            if shard.n > 1:     # the global batch's noise, this rank's rows
+                d = shard.draw(lambda n: torch.randn(
+                    (n,) + u_img.shape[1:], generator=generator, device=u_img.device,
+                    dtype=u_img.dtype), u_img.shape[0]) if d is None \
+                    else d[shard.rows(u_img.shape[0])]
             adv_img, _ = vat_perturbation(seg, u_img, xi, eps, ip, d=d,
-                                          generator=generator)
+                                          generator=generator, mean=shard.mean)
             with torch.no_grad():
                 real_probs = torch.softmax(seg.apply_train(u_img), dim=-1)
             adv_probs = torch.softmax(seg.apply_train(adv_img), dim=-1)
-            adv = torch.mean(kl_div_2d(adv_probs, real_probs))
+            adv = shard.mean(kl_div_2d(adv_probs, real_probs))
             total = sup + lam_adv * adv
         seg.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        shard.sync_grads(seg.net.parameters())
         seg.optimizer.step()
-        return {"sup_loss": sup.detach(), "adv_loss": adv.detach(),
+        return {"sup_loss": shard.total(sup), "adv_loss": shard.total(adv),
                 "dice": _dice_rows(logits.detach(), gt, C)}
 
     def epoch(img_u8: torch.Tensor, gt_u8: torch.Tensor, idx_lab, idx_unlab,
@@ -95,7 +115,9 @@ def make_vat_epoch(seg: Segmentator, sup_loss: Callable, C: int,
         steps = [one_step(img_u8, gt_u8, idx_lab[t], idx_unlab[t], generator, lam_adv,
                           at(thetas_lab, t), at(thetas_unlab, t), at(noise, t))
                  for t in range(idx_lab.shape[0])]
-        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        out = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        out["dice"] = shard.whole(out["dice"], dim=1)
+        return out
 
     return epoch
 
@@ -118,12 +140,16 @@ class VatTrainer:
                  seed: int = 1234,
                  whole_config: Optional[dict] = None,
                  nan_policy: str = "warn",
-                 device=None) -> None:
+                 device=None,
+                 mesh=None) -> None:
         self.device = check_device(device, [segmentator])
         self.segmentator = segmentator
         self.criterion = criterion
         self.max_epoch = max_epoch
-        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml")
+        self.mesh = check_data_mesh(mesh, batch_size)
+        self.is_main = is_main()
+        self.save_dir = make_save_dir(save_dir, whole_config, "config.yml",
+                                      write=self.is_main)
         self.C = segmentator.arch_dict["num_classes"]
         self.axises = axises if axises is not None else [1, 2, 3]
         self.metricname = metricname
@@ -161,7 +187,8 @@ class VatTrainer:
         """Train from ``start_epoch`` to ``max_epoch``; returns the CSV's
         rows. ``save_train`` and ``save_val`` are accepted and unused, as
         in dct_tpu."""
-        records = resume_records(self.save_dir / self.metricname, self.start_epoch)
+        records = resume_records(self.save_dir / self.metricname, self.start_epoch) \
+            if self.is_main else []
         for epoch in range(self.start_epoch, self.max_epoch):
             t0 = time.perf_counter()
             lam = self.adv_scheduler.value
@@ -169,12 +196,20 @@ class VatTrainer:
             idx_lab, idx_unlab = self.draw_indices()
             epoch_fn = make_vat_epoch(self.segmentator, self.criterion, self.C, adv_on,
                                       augment_labeled_data, augment_unlabeled_data,
-                                      self.eps, self.xi, self.ip)
-            metrics = epoch_fn(self._img_cat, self._gt_cat, idx_lab, idx_unlab,
+                                      self.eps, self.xi, self.ip, mesh=self.mesh)
+            local = (idx_lab, idx_unlab) if self.mesh is None else \
+                (dp_shard_idx(self.mesh, idx_lab), dp_shard_idx(self.mesh, idx_unlab))
+            metrics = epoch_fn(self._img_cat, self._gt_cat, *local,
                                epoch_generator(self.device, self.seed, epoch),
                                self.segmentator.lr(epoch), lam)
             m = {k: v.cpu().numpy() for k, v in metrics.items()}
             t_train = time.perf_counter() - t0
+            if not self.is_main:
+                check_finite_losses({"sup": m["sup_loss"], "adv": m["adv_loss"]},
+                                    epoch, self.nan_policy)
+                self.segmentator.scheduler_step()
+                self.adv_scheduler.step()
+                continue
             t_eval0 = time.perf_counter()
             val = eval_dice(self.eval_all, self.val_dev, self.val_buckets)
             t_eval = time.perf_counter() - t_eval0
@@ -223,4 +258,5 @@ class VatTrainer:
         self.best_score = float(sd["best_score"])
         self.start_epoch = int(sd["best_epoch"]) + 1
         self.adv_scheduler.load_state_dict(sd["adv_scheduler"])
-        print(f">>> {checkpoint} loaded (best {self.best_score:.3f})")
+        if self.is_main:
+            print(f">>> {checkpoint} loaded (best {self.best_score:.3f})")

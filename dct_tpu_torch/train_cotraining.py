@@ -9,8 +9,16 @@ card and raises without one; ``--device cpu`` runs on the CPU.
 ``Trainer.fuse_forward`` (default True) runs the labeled and unlabeled
 forwards as one two-group forward per model when ``train_jsd`` and B == Bu,
 as dct_tpu does; ``Trainer.adv_dtype`` (``float32`` or ``bfloat16``) runs
-the FGSM segment in its own dtype. Config keys of dct_tpu this port does
-not carry: ``Trainer.parallel`` raises; ``Trainer.iters_per_dispatch``
+the FGSM segment in its own dtype. ``Trainer.parallel`` chooses the mesh
+as dct_tpu does (``auto``: ``choose_parallel_mesh(K, world)``; an int: the
+model axis of ``make_mesh(world, n_model=int)``, even at world 1); to run
+on N ranks, launch under torchrun, on the card or on the CPU:
+
+    torchrun --nproc_per_node N -m dct_tpu_torch.train_cotraining \\
+        [--device cpu] Trainer.parallel=auto ...
+
+Config keys of dct_tpu this port does
+not carry: ``Trainer.iters_per_dispatch``
 must divide ``iters_per_epoch`` as in dct_tpu and changes nothing else,
 since the port dispatches per iteration; ``Trainer.device`` is ignored, as
 in dct_tpu.
@@ -23,7 +31,7 @@ from __future__ import annotations
 
 import sys
 
-from .cli import (build_segmentators, grp_regex, parse_args, reject_parallel,
+from .cli import (build_segmentators, finish, grp_regex, parallel_mesh, parse_args,
                   supervised_loss)
 from .data.splits import get_dataset_split
 from .losses import get_loss_fn
@@ -35,8 +43,7 @@ DEFAULT_CONFIG = "configs/acdc_cotraining.yaml"
 
 
 def check_trainer_config(trainer_cfg) -> None:
-    """Reject the Trainer keys of dct_tpu this port does not run."""
-    reject_parallel(trainer_cfg)
+    """``Trainer.iters_per_dispatch`` must divide the epoch, as in dct_tpu."""
     per = trainer_cfg.get("iters_per_dispatch")
     iters = int(trainer_cfg.get("iters_per_epoch", ITERS_PER_EPOCH))
     if per:
@@ -47,13 +54,14 @@ def main(argv=None) -> CoTrainer:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
     check_trainer_config(trainer_cfg)
+    n_models = int(config["Lab_Partitions"]["num_models"])
+    mesh, device = parallel_mesh(trainer_cfg, device, n_models)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)
 
     dataset_name = config.get("Dataset", {}).get("name", "acdc")
     labeled_sets, unlab_set, val_set = get_dataset_split(config, dataset_name)
-    segmentators = build_segmentators(
-        config, generator, device, int(config["Lab_Partitions"]["num_models"]))
+    segmentators = build_segmentators(config, generator, device, n_models)
     criterions = {"sup": supervised_loss(config), "jsd": get_loss_fn("jsd"),
                   "adv": get_loss_fn("jsd")}
 
@@ -81,6 +89,7 @@ def main(argv=None) -> CoTrainer:
         fuse_forward=bool(trainer_cfg.get("fuse_forward", True)),
         adv_dtype=trainer_cfg.get("adv_dtype"),
         device=device,
+        mesh=mesh,
     )
     cotrainer.start_training(**config["StartTraining"])
     return cotrainer
@@ -88,3 +97,4 @@ def main(argv=None) -> CoTrainer:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    finish()

@@ -16,7 +16,8 @@ COCO-pretrained DeepLabV2 weights, a torch ``.pth`` state_dict or a
 model takes the tensors whose names and shapes match its own (a DeepLab
 trunk; ASPP-v3's names differ, so it keeps its init), as dct_tpu does;
 where the file cannot be read or nothing matches (an ENet), it prints the
-failure and trains on from its init. ``Trainer.parallel`` raises;
+failure and trains on from its init. ``Trainer.parallel``, any value, is
+a data-only mesh over the ranks, as in ``train_sup``;
 ``Trainer.device`` is ignored, as in dct_tpu. Precision: PyTorch's
 defaults, as ``train_cotraining`` says.
 """
@@ -27,7 +28,7 @@ import sys
 import torch
 
 from .checkpoint import load_checkpoint
-from .cli import build_segmentators, parse_args, reject_parallel, supervised_loss
+from .cli import build_segmentators, finish, parallel_mesh, parse_args, supervised_loss
 from .data.cityscapes import get_cityscapes_split
 from .losses import get_loss_fn
 from .train import CoTrainerCity
@@ -64,7 +65,7 @@ def load_coco_init(segs, pth) -> None:
 def main(argv=None) -> CoTrainerCity:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
-    reject_parallel(trainer_cfg)
+    mesh, device = parallel_mesh(trainer_cfg, device)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)
 
@@ -90,6 +91,7 @@ def main(argv=None) -> CoTrainerCity:
         nan_policy=trainer_cfg.get("nan_policy", "warn"),
         whole_config=config,
         device=device,
+        mesh=mesh,
     )
     trainer.start_training(**{k: v for k, v in config.get("StartTraining", {}).items()
                               if k in ("train_jsd", "train_adv", "save_val")})
@@ -98,3 +100,4 @@ def main(argv=None) -> CoTrainerCity:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    finish()

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import sys
 
-from .cli import build_segmentators, grp_regex, parse_args, reject_parallel
+from .cli import build_segmentators, finish, grp_regex, parallel_mesh, parse_args
 from .data.splits import get_dataset_split
 from .losses import get_loss_fn
 from .train import MeanTeacherTrainer
@@ -26,7 +26,7 @@ DEFAULT_CONFIG = "configs/acdc_meanteacher.yaml"
 def main(argv=None) -> MeanTeacherTrainer:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
-    reject_parallel(trainer_cfg)
+    mesh, device = parallel_mesh(trainer_cfg, device)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)
 
@@ -53,6 +53,7 @@ def main(argv=None) -> MeanTeacherTrainer:
         whole_config=config,
         nan_policy=trainer_cfg.get("nan_policy", "warn"),
         device=device,
+        mesh=mesh,
     )
     trainer.start_training()
     return trainer
@@ -60,3 +61,4 @@ def main(argv=None) -> MeanTeacherTrainer:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    finish()

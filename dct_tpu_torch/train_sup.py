@@ -6,7 +6,10 @@
 One ENet on the whole train folder. It reads dct_tpu's YAML configs
 unchanged; ``--device`` defaults to the card and raises without one,
 ``--device cpu`` runs on the CPU. ``Trainer.checkpoint`` names a checkpoint
-file (``last.ckpt``) to resume from. ``Trainer.parallel`` raises; the other
+file (``last.ckpt``) to resume from. ``Trainer.parallel``, any value, is
+dct_tpu's ``data_parallel_mesh(world)``: none on one rank, data-parallel
+over the ranks of a ``torchrun --nproc_per_node N -m dct_tpu_torch.train_sup``
+launch (``parallel/data_parallel.py``). The other
 keys of dct_tpu's config that the port does not read (``Trainer.device``,
 the loaders' ``shuffle``/``drop_last``, ``Dataset.augment``) change
 nothing there either. Precision: PyTorch's defaults, as
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import sys
 
-from .cli import (build_segmentators, grp_regex, parse_args, reject_parallel,
+from .cli import (build_segmentators, finish, grp_regex, parallel_mesh, parse_args,
                   supervised_loss)
 from .data.dataset import MedicalImageDataset
 from .train import Trainer
@@ -28,7 +31,7 @@ DEFAULT_CONFIG = "configs/acdc_supervised.yaml"
 def main(argv=None) -> Trainer:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
-    reject_parallel(trainer_cfg)
+    mesh, device = parallel_mesh(trainer_cfg, device)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)
 
@@ -52,6 +55,7 @@ def main(argv=None) -> Trainer:
         whole_config=config,
         nan_policy=trainer_cfg.get("nan_policy", "warn"),
         device=device,
+        mesh=mesh,
     )
     trainer.start_training(**config.get("StartTraining", {}))
     return trainer
@@ -59,3 +63,4 @@ def main(argv=None) -> Trainer:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    finish()

@@ -8,7 +8,7 @@ the card:
 One ENet on the whole (subsampled) train split, no partitions and no
 semi-supervised terms (``train/city.py:TrainerCity``). Config, overrides,
 ``--device``, ``Trainer.checkpoint`` (a run directory) and
-``Trainer.parallel`` (it raises) as in ``train_cotraining_city``. As in
+``Trainer.parallel`` (a data-only mesh) as in ``train_cotraining_city``. As in
 dct_tpu, ``Trainer.coco_init_pth`` is not read here and
 ``StartTraining.save_val`` dumps nothing.
 """
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import sys
 
-from .cli import build_segmentators, parse_args, reject_parallel, supervised_loss
+from .cli import build_segmentators, finish, parallel_mesh, parse_args, supervised_loss
 from .data.cityscapes import CityscapesDataset
 from .train import TrainerCity
 from .utils.general import fix_all_seed
@@ -27,7 +27,7 @@ DEFAULT_CONFIG = "configs/cityscapes_supervised.yaml"
 def main(argv=None) -> TrainerCity:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
-    reject_parallel(trainer_cfg)
+    mesh, device = parallel_mesh(trainer_cfg, device)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)
 
@@ -50,6 +50,7 @@ def main(argv=None) -> TrainerCity:
         nan_policy=trainer_cfg.get("nan_policy", "warn"),
         whole_config=config,
         device=device,
+        mesh=mesh,
     )
     trainer.start_training()
     return trainer
@@ -57,3 +58,4 @@ def main(argv=None) -> TrainerCity:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    finish()

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import sys
 
-from .cli import (build_segmentators, grp_regex, parse_args, reject_parallel,
+from .cli import (build_segmentators, finish, grp_regex, parallel_mesh, parse_args,
                   supervised_loss)
 from .data.splits import get_dataset_split
 from .train import VatTrainer
@@ -23,7 +23,7 @@ DEFAULT_CONFIG = "configs/acdc_vat.yaml"
 def main(argv=None) -> VatTrainer:
     config, device = parse_args(argv, DEFAULT_CONFIG)
     trainer_cfg = config["Trainer"]
-    reject_parallel(trainer_cfg)
+    mesh, device = parallel_mesh(trainer_cfg, device)
     seed = int(config.get("Seed", 1234))
     generator = fix_all_seed(seed)
 
@@ -46,6 +46,7 @@ def main(argv=None) -> VatTrainer:
         whole_config=config,
         nan_policy=trainer_cfg.get("nan_policy", "warn"),
         device=device,
+        mesh=mesh,
     )
     trainer.start_training(**config.get("StartTraining", {}))
     return trainer
@@ -53,3 +54,4 @@ def main(argv=None) -> VatTrainer:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    finish()

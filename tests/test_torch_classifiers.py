@@ -14,8 +14,8 @@ leaf, against dct_tpu's flax init.
   and PSPNet's ``final`` lecun-normal (flax's normal cut at ±2σ, σ the
   untruncated one, 1/0.8796 of the draws' standard deviation), on both
   sides inside the cut; xavier-normal elsewhere, of the same standard
-  deviation (dct_tpu's flax draws it truncated too, the port's torch not:
-  ROADMAP §3); each kernel's standard deviation within 5/√n + 2 % of
+  deviation (truncated at ±2σ on both sides); each kernel's
+  standard deviation within 5/√n + 2 % of
   dct_tpu's (n its elements) and of its family's, and each constant leaf
   the same constant.
 """

@@ -401,8 +401,14 @@ def test_png_dumps_have_dct_tpus_layout(cli_run, tmp_path, jax_seg):
 
 
 def test_cli_rejects_what_the_port_does_not_run(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(cli_args(tree, tmp_path, "Trainer.max_epoch=1", "Trainer.parallel=auto"))
+    """``Trainer.parallel=auto`` in one process is dct_tpu's
+    ``choose_parallel_mesh(K, 1)``: no mesh, the plain path; a model axis
+    of 2 does not divide one rank and raises, as in dct_tpu; an
+    ``iters_per_dispatch`` that does not divide the epoch raises."""
+    tr = main(cli_args(tree, tmp_path, "Trainer.max_epoch=1", "Trainer.parallel=auto"))
+    assert tr.mesh is None and (tmp_path / "metrics.csv").exists()
+    with pytest.raises(AssertionError, match="not divisible"):
+        main(cli_args(tree, tmp_path / "two", "Trainer.max_epoch=1", "Trainer.parallel=2"))
     with pytest.raises(AssertionError):
         main(cli_args(tree, tmp_path, "Trainer.max_epoch=1", "Trainer.iters_per_dispatch=3"))
 

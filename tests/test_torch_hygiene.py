@@ -1,4 +1,5 @@
-"""Rules of the dct_tpu_torch package: it never imports JAX or dct_tpu, it
+"""Rules of the dct_tpu_torch package: it never imports JAX or dct_tpu (nor
+does the parallel tests' worker module, which spawned ranks import), it
 imports where JAX cannot be imported, its CLIs (the trainers, the summary
 and the report) need no pandas, and its entry points (the trainers, the
 summary and the bench) refuse to run on the CPU unless asked to."""
@@ -31,6 +32,25 @@ def test_port_has_files():
 def test_no_jax_or_dct_tpu_imports(path):
     hits = FORBIDDEN.findall((ROOT / path).read_text())
     assert not hits, (path, hits)
+
+
+def test_parallel_modules_are_checked():
+    """The parallel package is among the files scanned above, and the
+    module the parallel tests' spawned ranks re-import (their workers)
+    imports no JAX or dct_tpu either."""
+    for name in ("mesh", "comm", "data_parallel", "shard_cotrain", "spatial", "dryrun"):
+        assert f"dct_tpu_torch/parallel/{name}.py" in PORT_FILES, name
+    workers = ROOT / "tests" / "test_torch_parallel_workers.py"
+    assert not FORBIDDEN.findall(workers.read_text())
+    code = ("import sys\n"
+            "for name in ('jax', 'flax', 'optax', 'dct_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import test_torch_parallel_workers\n"
+            "import dct_tpu_torch.parallel.dryrun\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_port_imports_with_jax_blocked():
