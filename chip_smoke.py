@@ -201,6 +201,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``results/ACDC_cotrain_r3/best_0.ckpt`` ENet at 256×512, halo 64, its
    argmax agreement above 0.9.
 
+13. Slice 11's paths: (a) ``utils/logging.py:trace_epoch`` around 3 fused
+   bf16 co-training iterations at full width (two ENets, B = Bu = 4, 256²,
+   bench.py's 1674-slice uint8 set from ``RandomState(0)``; one iteration
+   before the trace): the trace file must parse, and its device events of
+   the four kernels must equal the counters, 8 of each an iteration; the
+   kernels' share of the traced device time is printed. (b)
+   ``augment_batch``, ``augment_u8_with_thetas`` and
+   ``warp_gather_normalize`` on 12 indices, bit-equal on the card to
+   ``normalize_gather`` → ``augment_batch_with_thetas`` under the same
+   thetas, and the card bit-equal to the port on the CPU. (c) The
+   ``FSGMGenerator`` and ``VATGenerator`` (ip = 1) shims on the trained
+   ``results/ACDC_cotrain_r3/best_0.ckpt`` ENet, bit-equal to the direct
+   ``fgsm`` and ``vat_perturbation`` calls under cuDNN's deterministic
+   algorithms, launching 2/2/2/2 and 4/4/2/2; (d) ``predict(logit=False)``,
+   rows summing to 1 within 1e-5; (e) the eval step with class weights
+   (0.5, 2, 1, 4) on a padded 16-slice val bucket, the card within 1e-4
+   relative of the CPU port (TF32 off); (f) where matplotlib imports, the
+   learning-curve plot on phase 5's ``metrics.csv`` and the viewer in batch
+   mode on phase 7's predictions (``build/phase13/``); else it prints why
+   they did not run.
+
 It ends with the ``kernels`` JSON line and, last, one JSON object
 ``{"ok": true, "device": {...}}``. It exits non-zero, with no result, when
 no CUDA device is present or the ``dct_tpu_torch`` package is not beside it.
@@ -724,6 +745,8 @@ def main() -> int:
     done("phase 11")
     slice10 = run_slice10(torch, pk, card, cli["tree"])
     done("phase 12")
+    slice11 = run_slice11(torch, pk, card, cli)
+    done("phase 13")
 
     kernels = []
     main_path = {where for _, where in POOL_SHAPES + UNPOOL_SHAPES}
@@ -753,7 +776,8 @@ def main() -> int:
             "launches_city": {k: v[name] for k, v in city.items()},
             "launches_slice8": {k: v[name] for k, v in slice8.items()},
             "launches_slice9": {k: v[name] for k, v in slice9.items()},
-            "launches_parallel_per_rank": {k: v[name] for k, v in slice10.items()}})
+            "launches_parallel_per_rank": {k: v[name] for k, v in slice10.items()},
+            "launches_slice11": {k: v[name] for k, v in slice11.items()}})
         kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
@@ -2625,6 +2649,239 @@ def slice10_rank_launches(case: dict, rank: int) -> int:
     model b = 1 (its fused forward and the generation)."""
     forwards = case["K"] + 2 if case["n_model"] == 1 else 2
     return 2 * forwards
+
+
+# phase 13: the Op enum of csrc/pool_mask.cu's tiled_kernel, in its order
+TILED_OPS = {"kPoolFwd": "pool_mask_fwd", "kPoolBwd": "pool_mask_bwd",
+             "kUnpoolFwd": "unpool_fwd", "kUnpoolBwd": "unpool_bwd"}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SLICE11_LOSS_WEIGHT = [0.5, 2.0, 1.0, 4.0]
+
+
+def traced_kernel(name: str):
+    """The port's kernel a trace event's name launches, or None for any
+    other kernel: ``(anonymous namespace)::tiled_kernel<((anonymous
+    namespace)::Op)2, ...>`` as the trace names it, or
+    ``tiled_kernel<Op::kUnpoolFwd, ...>``, or not demangled
+    (``...tiled_kernelILNS_2OpE2E...``)."""
+    import re
+    m = (re.search(r"tiled_kernel<[^,]*?\bOp(?:\)\s*|::)(\w+)", name)
+         or re.search(r"tiled_kernelIL\w*?OpE?(\d+)E", name))
+    if m is None:
+        return None
+    ops = list(TILED_OPS.values())
+    tok = m.group(1)
+    if tok.isdigit() and int(tok) < len(ops):
+        return ops[int(tok)]
+    if tok in TILED_OPS:
+        return TILED_OPS[tok]
+    raise AssertionError(f"phase 13: a tiled_kernel event no kernel claims: {name}")
+
+
+def check_trace(torch, pk, card: str, img_u8, gt_u8, rs, logdir: Path) -> tuple:
+    """Phase 13 (a): ``trace_epoch`` around 3 fused bf16 co-training
+    iterations (one more before, outside the trace); the trace's device
+    events of the four kernels must equal the counters. Returns (the
+    counters, the kernels' share of the traced device time). The names and
+    counts of the trace's device events go to ``OUT_DIR``."""
+    from collections import Counter
+    from dct_tpu_torch.losses import get_loss_fn
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train.steps import make_cotrain_epoch
+    from dct_tpu_torch.utils.logging import trace_epoch
+    ce = get_loss_fn("cross_entropy")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    segs = build_models(torch, Segmentator, "bfloat16", 30)
+    run_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8, rs, 1, gen)
+    with trace_epoch(logdir) as prof:
+        _, _, counters = run_step(torch, pk, make_cotrain_epoch, ce, segs, img_u8, gt_u8,
+                                  rs, 3, gen)
+    assert prof is not None
+    traces = list(logdir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"phase 13: trace_epoch wrote {traces}")
+    events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    names = Counter((e["cat"], e.get("name", "")) for e in events)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase13_trace_events.json").write_text(json.dumps(
+        sorted(([c, n, k] for (c, n), k in names.items()), key=lambda r: -r[2]), indent=0))
+    seen = dict.fromkeys(pk.KERNELS, 0)
+    kernel_us = 0.0
+    for e in events:
+        k = traced_kernel(e.get("name", "")) if e["cat"] == "kernel" else None
+        if k is not None:
+            seen[k] += 1
+            kernel_us += float(e["dur"])
+    device_us = sum(float(e["dur"]) for e in events)
+    if seen != counters or set(seen.values()) != {3 * 8}:
+        raise AssertionError(
+            f"phase 13: the trace holds {seen} launches of the kernels, the counters "
+            f"{counters} (8 each an iteration); its {len(events)} device events by "
+            f"category {Counter(e['cat'] for e in events)}, names "
+            f"{[n[:100] for (_, n), _ in names.most_common(12)]}")
+    share = kernel_us / device_us
+    print(f"phase 13 (a): trace_epoch, 3 fused bf16 iterations -> {traces[0]} "
+          f"({traces[0].stat().st_size / 2**20:.1f} MiB): {len(events)} device events, "
+          f"device time {device_us / 1e3:.3f} ms, the four kernels {seen} in the trace = "
+          f"the counters, {kernel_us / 1e3:.3f} ms: {100 * share:.3f} % of the traced "
+          f"device time ({card})", flush=True)
+    emit({"slice11_trace": {"device_ms": device_us / 1e3, "kernel_ms": kernel_us / 1e3,
+                            "kernel_share": share, "events": len(events),
+                            "by_category": dict(Counter(e["cat"] for e in events)),
+                            "launches": seen}, "card": card})
+    return counters, share
+
+
+def run_slice11(torch, pk, card: str, cli: dict) -> dict:
+    """Phase 13, slice 11's paths on the card, (a)–(f) as the module
+    docstring says. Returns each path's launches."""
+    import shutil
+    from dct_tpu_torch.adversarial import FSGMGenerator, VATGenerator, fgsm, vat_perturbation
+    from dct_tpu_torch.checkpoint import load_checkpoint
+    from dct_tpu_torch.data.augment import (augment_batch, augment_batch_with_thetas,
+                                            augment_u8_with_thetas, sample_aug_thetas)
+    from dct_tpu_torch.data.pipeline import normalize_gather, warp_gather_normalize
+    from dct_tpu_torch.losses import get_loss_fn
+    from dct_tpu_torch.models import Segmentator
+    from dct_tpu_torch.train.steps import make_eval_patient_step
+    t_start = time.perf_counter()
+    out_dir = Path("build/phase13")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = dict(pk.LAUNCHES)
+        return result
+
+    # (a) the trace, on bench.py's data set
+    rs = np.random.RandomState(0)
+    N, H = 1674, 256
+    img_u8 = torch.from_numpy(rs.randint(0, 255, (N, H, H), dtype=np.uint8)).cuda()
+    gt_u8 = torch.from_numpy(rs.randint(0, 4, (N, H, H)).astype(np.uint8)).cuda()
+    ce = get_loss_fn("cross_entropy")
+    launches["trace_3_iterations"], share = check_trace(torch, pk, card, img_u8, gt_u8, rs,
+                                                        out_dir / "trace")
+
+    # (b) the warp API on B = 12 indices, under one draw of thetas
+    idx = torch.from_numpy(rs.randint(0, N, 12)).cuda()
+    thetas = sample_aug_thetas(torch.Generator(device="cuda").manual_seed(5), 12, H, H)
+    two_step = augment_batch_with_thetas(*normalize_gather(img_u8, gt_u8, idx), thetas)
+    paths = {
+        "augment_batch": augment_batch(*normalize_gather(img_u8, gt_u8, idx),
+                                       torch.Generator(device="cuda").manual_seed(5)),
+        "augment_u8_with_thetas": augment_u8_with_thetas(img_u8[idx], gt_u8[idx], thetas),
+        "warp_gather_normalize": warp_gather_normalize(img_u8, gt_u8, idx, thetas)}
+    cpu = {"two_step": augment_batch_with_thetas(
+        *normalize_gather(img_u8[idx].cpu(), gt_u8[idx].cpu(), torch.arange(12)),
+        thetas.cpu())}
+    cpu["warp_gather_normalize"] = warp_gather_normalize(img_u8[idx].cpu(), gt_u8[idx].cpu(),
+                                                         torch.arange(12), thetas.cpu())
+    diffs = {name: [int((a != b).sum()) for a, b in zip(got, two_step)]
+             for name, got in paths.items()}
+    diffs.update({f"{name}_vs_cpu": [int((a.cpu() != b).sum()) for a, b in zip(two_step, got)]
+                  for name, got in cpu.items()})
+    print(f"phase 13 (b): the warps on the card vs the two-step warp, and the card vs the "
+          f"CPU port, differing (image, label) pixels: {diffs}", flush=True)
+    if any(any(d) for d in diffs.values()):
+        raise AssertionError(f"phase 13: warps differ: {diffs}")
+    del img_u8, gt_u8
+
+    # (c)-(e) the trained r3 ENet (cuDNN's deterministic algorithms: two
+    # identical calls then agree to the bit)
+    sd = load_checkpoint("results/ACDC_cotrain_r3/best_0.ckpt")["segmentator"]
+    seg = Segmentator.from_state_dict(sd, device="cuda")
+    val, buckets = cli["val"], cli["buckets"]
+    p = [p for p in range(len(buckets)) if not buckets.mask[p].all()][0]
+    x = torch.from_numpy(val.data["img"][buckets.indices[p][:8]]).cuda().float()[..., None] / 255.0
+    gt = torch.from_numpy(val.data["gt"][buckets.indices[p][:4]]).cuda().long()
+    d = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        shim = {"fgsm": counted("fgsm", lambda: FSGMGenerator(seg, 0.03)(x, gt, ce)),
+                "vat": counted("vat", lambda: VATGenerator(seg, 1e-6, 10.0, 1)(x, d=d)),
+                "vat_generator": VATGenerator(seg, 1e-6, 10.0, 1)(
+                    x, generator=torch.Generator(device="cuda").manual_seed(7))}
+        direct = {"fgsm": fgsm(seg, x, gt, ce, 0.03),
+                  "vat": vat_perturbation(seg, x, 1e-6, 10.0, 1, d=d),
+                  "vat_generator": vat_perturbation(
+                      seg, x, 1e-6, 10.0, 1,
+                      generator=torch.Generator(device="cuda").manual_seed(7))}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    equal = {k: all(same(a, b) for a, b in zip(shim[k], direct[k])) for k in shim}
+    norms = shim["vat"][1].flatten(1).double().norm(dim=1)
+    print(f"phase 13 (c): FSGMGenerator / VATGenerator (ip = 1) on results/ACDC_cotrain_r3 "
+          f"best_0 vs the direct calls, bit-equal: {equal}; launches FGSM "
+          f"{launches['fgsm']}, VAT {launches['vat']}; ‖r_adv‖ {norms.tolist()}", flush=True)
+    if not all(equal.values()):
+        raise AssertionError(f"phase 13: the shims differ from the direct calls: {equal}")
+    for name, want in (("fgsm", (2, 2, 2, 2)), ("vat", (4, 4, 2, 2))):
+        if launches[name] != dict(zip(FWD_BWD, want)):
+            raise AssertionError(f"phase 13: {name} launched {launches[name]}, expected "
+                                 f"{dict(zip(FWD_BWD, want))}")
+    probs = counted("predict", lambda: seg.predict(x, logit=False))
+    row_err = float((probs.double().sum(-1) - 1).abs().max())
+    print(f"phase 13 (d): predict(logit=False): rows sum to 1 within {row_err:.2e}; "
+          f"launches {launches['predict']}", flush=True)
+    if not (row_err <= 1e-5 and launches["predict"] == dict(zip(FWD_BWD, (2, 2, 0, 0)))):
+        raise AssertionError(f"phase 13: predict(logit=False) {row_err}, {launches['predict']}")
+    # the shims' train-mode forwards moved seg's running statistics: the
+    # eval step runs on fresh copies of the checkpoint on both sides
+    seg = Segmentator.from_state_dict(sd, device="cuda")
+    cpu_seg = Segmentator.from_state_dict(sd, device="cpu")
+    losses = {}
+    with tf32_off(torch):
+        for side, s_, u8 in (("card", seg, "cuda"), ("cpu", cpu_seg, "cpu")):
+            for w in (None, SLICE11_LOSS_WEIGHT):
+                step = make_eval_patient_step(s_, 4, w)
+                img_v = torch.from_numpy(val.data["img"]).to(u8)
+                gt_v = torch.from_numpy(val.data["gt"]).to(u8)
+                run = (lambda: step(img_v, gt_v, buckets.indices[p], buckets.mask[p]))
+                m = counted("eval", run) if (side, w) == ("card", SLICE11_LOSS_WEIGHT) else run()
+                losses[side, w is None] = float(m["loss"])
+    rel = abs(losses["card", False] - losses["cpu", False]) / abs(losses["cpu", False])
+    print(f"phase 13 (e): eval step with loss_weight {SLICE11_LOSS_WEIGHT} on a padded "
+          f"{EVAL_L}-slice bucket: card {losses['card', False]:.7f}, CPU "
+          f"{losses['cpu', False]:.7f} ({rel:.2e} relative); unweighted "
+          f"{losses['card', True]:.7f}; launches {launches['eval']}", flush=True)
+    if not (rel <= 1e-4 and losses["card", False] != losses["card", True]
+            and launches["eval"] == dict(zip(FWD_BWD, (2, 2, 0, 0)))):
+        raise AssertionError(f"phase 13: the weighted eval loss {losses}, {launches['eval']}")
+
+    # (f) the offline plot and viewer, host tools with no device path
+    try:
+        import matplotlib
+        mpl = matplotlib.__version__
+    except ImportError as e:
+        mpl = None
+        print(f"phase 13 (f): matplotlib does not import on this machine ({e}): the "
+              f"learning-curve plot and the viewer (host tools; dct_tpu needs matplotlib "
+              f"for them too) did not run", flush=True)
+    if mpl is not None:
+        from dct_tpu_torch.postprocessing import plot, viewer
+        out_dir.mkdir(parents=True, exist_ok=True)
+        curves = plot.plot_learning_curves(["build/cli_run"], out=str(out_dir / "curves.png"))
+        preds = Path("build/cli_run/iter1000/val")
+        viewer.main(["--img_source", "build/acdc_synthetic/val/img", str(preds / "0"),
+                     str(preds / "voting"), "-n", "4", "--out", str(out_dir / "viewer.png")])
+        files = [Path(curves), out_dir / "viewer.png"]
+        if not all(f.is_file() and f.stat().st_size > 0 for f in files):
+            raise AssertionError(f"phase 13: the plot or the viewer wrote nothing: {files}")
+        print(f"phase 13 (f): matplotlib {mpl} imports; plot_learning_curves on phase 5's "
+              f"metrics.csv and the viewer (batch mode) on phase 7's predictions wrote "
+              f"{[str(f) for f in files]}", flush=True)
+    seconds = time.perf_counter() - t_start
+    print(f"phase 13: {seconds:.1f} s ({card})", flush=True)
+    emit({"slice11_seconds": seconds, "matplotlib": mpl, "kernel_share": share,
+          "launches": launches, "card": card})
+    return launches
 
 
 if __name__ == "__main__":

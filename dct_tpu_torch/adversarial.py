@@ -79,3 +79,45 @@ def vat_perturbation(seg: Segmentator, img: torch.Tensor, xi: float = 1e-6,
     if clamp:
         adv_img = torch.clamp(adv_img, 0.0, 1.0)
     return adv_img.detach(), r_adv.detach()
+
+
+class FSGMGenerator:
+    """dct_tpu's object form of :func:`fgsm` (the reference's spelling),
+    around a Segmentator instead of an apply function.
+    ``gen(img, gt, criterion)`` returns :func:`fgsm`'s (adversarial image,
+    noise, softmax probabilities) and updates the Segmentator's running
+    statistics in place; dct_tpu's returns the new statistics as a fourth
+    value."""
+
+    def __init__(self, seg: Segmentator, eplision: float = 0.05) -> None:
+        self.seg = seg
+        self.eplision = eplision
+
+    def __call__(self, img: torch.Tensor, gt: torch.Tensor, criterion: Callable
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return fgsm(self.seg, img, gt, criterion, self.eplision)
+
+
+class VATGenerator:
+    """dct_tpu's object form of :func:`vat_perturbation` (power iterations
+    ``ip`` from ``xi``-scaled noise, an ``eplision`` step), around a
+    Segmentator. ``gen(img, generator=None, d=None)`` draws the starting
+    noise from ``generator`` unless ``d`` is given (one of the two is
+    required; dct_tpu takes a key) and returns (adversarial image clamped
+    to [0, 1], ``r_adv``); the clean forward updates the Segmentator's
+    running statistics in place, where dct_tpu returns them as a third
+    value."""
+
+    def __init__(self, seg: Segmentator, xi: float = 1e-6,
+                 eplision: float = 10.0, ip: int = 1) -> None:
+        self.seg = seg
+        self.xi = xi
+        self.eps = eplision
+        self.ip = ip
+
+    def __call__(self, img: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 d: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        if generator is None and d is None:
+            raise ValueError("VATGenerator needs a generator or the noise d")
+        return vat_perturbation(self.seg, img, self.xi, self.eps, self.ip,
+                                d=d, generator=generator)

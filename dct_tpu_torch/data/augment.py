@@ -13,7 +13,17 @@ from typing import Tuple
 
 import torch
 
-from ..ops.warp import affine_warp
+from ..ops.warp import affine_warp, affine_warp_shear_batch
+
+
+def scale_u8(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """uint8 → ``dtype`` in [0, 1]: divided by 255, on every device. On the
+    card PyTorch turns a division by a Python scalar into a multiply by its
+    reciprocal, one ulp off the quotient for 126 of the 256 values (as
+    jitted dct_tpu does); a 0-d tensor divisor keeps the division, so the
+    card's images equal the CPU's (and un-jitted dct_tpu's) to the bit."""
+    x = x.to(dtype)
+    return x / torch.full((), 255.0, dtype=dtype, device=x.device)
 
 
 def sample_aug_thetas(generator: torch.Generator, n: int, height: int,
@@ -47,17 +57,48 @@ def sample_aug_thetas(generator: torch.Generator, n: int, height: int,
     return torch.cat([lin, t], dim=2)
 
 
+def augment_batch(img: torch.Tensor, gt: torch.Tensor,
+                  generator: torch.Generator, fast: bool = True,
+                  impl: str = "gather") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Jointly augment (B,H,W[,C]) float images and (B,H,W) int labels by
+    per-sample thetas drawn from ``generator`` (``sample_aug_thetas``)
+    and moved to the images' device. ``fast`` and ``impl`` as in
+    :func:`augment_batch_with_thetas`."""
+    b, h, w = img.shape[:3]
+    thetas = sample_aug_thetas(generator, b, h, w).to(img.device)
+    return augment_batch_with_thetas(img, gt, thetas, fast=fast, impl=impl)
+
+
+def augment_u8_with_thetas(img_u8: torch.Tensor, gt_u8: torch.Tensor,
+                           thetas: torch.Tensor, dtype=torch.float32
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-warp a gathered uint8 batch (img (B,H,W), gt (B,H,W)) jointly,
+    then normalise → ((B,H,W,1) ``dtype`` image in [0,1], (B,H,W) int64
+    labels; dct_tpu's are int32). A nearest warp only selects pixels (or
+    fills 0), so it commutes with the per-pixel division by 255: equal to
+    ``warp_gathered_u8`` to the bit."""
+    stacked = torch.stack([img_u8, gt_u8], dim=-1)              # (B,H,W,2) u8
+    out = affine_warp(stacked, thetas, "nearest", 0)
+    return scale_u8(out[..., 0], dtype)[..., None], out[..., 1].long()
+
+
 def augment_batch_with_thetas(img: torch.Tensor, gt: torch.Tensor,
-                              thetas: torch.Tensor, fast: bool = True
+                              thetas: torch.Tensor, fast: bool = True,
+                              impl: str = "gather"
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Jointly warp (B,H,W[,1]) float images and (B,H,W) int labels by the
-    given (B,2,3) thetas. ``fast`` warps both nearest in one pass; otherwise
-    the image is warped bilinearly and the labels nearest."""
+    given (B,2,3) thetas. ``fast`` warps both nearest in one pass, by the
+    exact per-pixel gather (``impl="gather"``) or by the L·D·U shear warp
+    (``"shear"``, ``ops/warp.py:affine_warp_shear_batch``); otherwise the
+    image is warped bilinearly and the labels nearest."""
     squeeze_c = img.dim() == 4
     im = img[..., 0] if squeeze_c else img
     if fast:
         stacked = torch.stack([im, gt.to(im.dtype)], dim=-1)      # (B,H,W,2)
-        out = affine_warp(stacked, thetas, "nearest", 0.0)
+        if impl == "shear":
+            out = affine_warp_shear_batch(stacked, thetas)
+        else:
+            out = affine_warp(stacked, thetas, "nearest", 0.0)
         im_a, gt_a = out[..., 0], out[..., 1].to(gt.dtype)
     else:
         im_a = affine_warp(im, thetas, "bilinear", 0.0)
@@ -80,5 +121,5 @@ def warp_gathered_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Normalise a gathered uint8 (B,H,W) img+gt pair to float first, then
     nearest-warp the pair → ((B,H,W,1) image in [0,1], (B,H,W) int64 labels)."""
-    img = img_u8.to(dtype)[..., None] / 255.0
+    img = scale_u8(img_u8, dtype)[..., None]
     return augment_batch_with_thetas(img, gt_u8.long(), thetas)

@@ -12,7 +12,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .augment import augment_batch_with_thetas, sample_aug_thetas, warp_gathered_u8
+from .augment import (augment_batch_with_thetas, augment_u8_with_thetas,
+                      sample_aug_thetas, scale_u8, warp_gathered_u8)
 from .dataset import MedicalImageDataset
 
 
@@ -38,7 +39,7 @@ def normalize_gather(img_u8: torch.Tensor, gt_u8: torch.Tensor,
     """Gather a batch by indices and normalise: uint8 → [0,1] float
     (B,H,W,C) (grayscale (N,H,W) gains a channel axis, RGB (N,H,W,3) keeps
     its own); labels → int64."""
-    img = img_u8[idx].to(dtype) / 255.0
+    img = scale_u8(img_u8[idx], dtype)
     gt = gt_u8[idx].long()
     if img.dim() == 3:
         img = img[..., None]
@@ -62,6 +63,24 @@ def gather_augment_u8(img_u8: torch.Tensor, gt_u8: torch.Tensor,
         img, gt = normalize_gather(img_u8, gt_u8, idx, dtype)
         return augment_batch_with_thetas(img, gt, thetas)
     return warp_gathered_u8(img_u8[idx], gt_u8[idx], thetas, dtype)
+
+
+def warp_gather_normalize(img_u8: torch.Tensor, gt_u8: torch.Tensor,
+                          idx: torch.Tensor, thetas: torch.Tensor,
+                          dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``normalize_gather`` and a nearest affine warp by ``thetas`` (B,2,3)
+    of a grayscale uint8 dataset (N,H,W): the gathered uint8 pair is warped
+    by ``augment_u8_with_thetas`` and normalised after it (the division by
+    255 is per pixel, so it commutes with the warp exactly). Out-of-bounds
+    pixels are 0 in image and labels. Returns ((B,H,W,1) image, (B,H,W)
+    int64 labels), equal to the bit to ``normalize_gather`` then
+    ``augment_batch_with_thetas``."""
+    assert img_u8.dim() == 3, "fused warp-gather supports grayscale (N,H,W)"
+    n, h, w = img_u8.shape
+    assert n * h * w < 2 ** 31, "flat index would overflow int32"
+    idx = torch.as_tensor(idx, device=img_u8.device).long()
+    return augment_u8_with_thetas(img_u8[idx], gt_u8[idx],
+                                  thetas.to(img_u8.device), dtype)
 
 
 class EpochBatcher:
@@ -116,11 +135,12 @@ class InfiniteBatcher:
 
 class PatientBuckets:
     """Patient-grouped, padded eval batches: each patient's slices, padded
-    to the longest patient's count rounded up to a multiple of 8, with a
-    validity mask. Padding repeats index 0 and is masked out of every dice
-    and loss."""
+    to the longest patient's count rounded up to a multiple of
+    ``round_to``, with a validity mask. Padding repeats index 0 and is
+    masked out of every dice and loss."""
 
-    def __init__(self, ds: MedicalImageDataset, grp_regex: str) -> None:
+    def __init__(self, ds: MedicalImageDataset, grp_regex: str,
+                 round_to: int = 8) -> None:
         pattern = re.compile(grp_regex)
         groups: Dict[str, List[int]] = {}
         for i, stem in enumerate(ds.filenames):
@@ -129,7 +149,7 @@ class PatientBuckets:
             groups.setdefault(m.group(1), []).append(i)
         self.patients = sorted(groups)
         max_len = max(len(v) for v in groups.values())
-        self.bucket_len = -(-max_len // 8) * 8
+        self.bucket_len = -(-max_len // round_to) * round_to
         P = len(self.patients)
         self.indices = np.zeros((P, self.bucket_len), np.int32)
         self.mask = np.zeros((P, self.bucket_len), bool)

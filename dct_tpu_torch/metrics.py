@@ -1,8 +1,12 @@
 """Cohen's kappa diversity of the ensemble evaluation
-(``dct_tpu/metrics.py:cohen_kappa``, ``KappaMetrics``), and the streaming
-confusion matrix and IoU of the Cityscapes trainers
+(``dct_tpu/metrics.py:cohen_kappa``, ``KappaMetrics``, ``Kappa2Annotator``),
+the streaming confusion matrix and IoU of the Cityscapes trainers
 (``dct_tpu/metrics.py:ConfusionMatrix``, ``IoU``;
-``dct_tpu/train/city.py:iou_from_confusion``).
+``dct_tpu/train/city.py:iou_from_confusion``), and dct_tpu's host meters
+(``AverageValueMeter``, ``DiceMeter``, ``AggregatedMeter``,
+``ListAggregatedMeter``). The two aggregated meters return pandas
+DataFrames, as dct_tpu's do; pandas is imported inside those methods only,
+so nothing else here needs it.
 
 Kappa: plain host functions on class maps given as numpy arrays or tensors. They
 keep dct_tpu's semantics, quirks included: the classes are the unique
@@ -15,7 +19,7 @@ everywhere.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -142,3 +146,160 @@ class IoU:
             out["Validated_Mean_IoU"] = (np.nanmean(out["Class_IoU"][valid])
                                          if valid.any() else np.nan)
         return out
+
+
+class Kappa2Annotator:
+    """Pairwise kappa between two models' maps, on the pixels whose ground
+    truth is a considered class (all pixels when ``considered_classes`` is
+    None); ``value()`` is the mean over the ``add`` calls."""
+
+    def __init__(self) -> None:
+        self.kappa: List[float] = []
+
+    def reset(self) -> None:
+        self.kappa = []
+
+    def add(self, predict1, predict2, gt, considered_classes=(1, 2, 3)) -> None:
+        p1, p2 = _flat(predict1), _flat(predict2)
+        if considered_classes is not None:
+            g = _flat(gt)
+            mask = torch.isin(g, torch.as_tensor(list(considered_classes), dtype=g.dtype))
+            p1, p2 = p1[mask], p2[mask]
+        self.kappa.append(cohen_kappa(p1, p2))
+
+    def value(self) -> float:
+        return float(np.mean(self.kappa))
+
+
+class AverageValueMeter:
+    """Streaming mean and (population) standard deviation of weighted
+    scalars: ``add(value, n)`` counts ``value`` ``n`` times; ``value()`` →
+    (mean, std), NaNs before the first ``add``."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.n = 0
+        self.sum = 0.0
+        self.var = 0.0
+
+    def add(self, value: float, n: int = 1) -> None:
+        value = float(value)
+        self.n += n
+        self.sum += value * n
+        self.var += value * value * n
+
+    def value(self):
+        if self.n == 0:
+            return np.nan, np.nan
+        mean = self.sum / self.n
+        std = np.sqrt(max(self.var / self.n - mean * mean, 0.0))
+        return mean, std
+
+
+class DiceMeter:
+    """Accumulates dice rows on the host: ``method="2d"`` takes (B,C) rows of
+    per-slice dice an ``add``, ``"3d"`` one (C,) row of a volume. ``value()``
+    → ((mean, std) of the rows' mean over ``report_axises`` (all classes
+    by default), (per-class means, per-class stds))."""
+
+    def __init__(self, method: str = "2d", report_axises: Union[str, List[int]] = "all",
+                 C: int = 4) -> None:
+        assert method in ("2d", "3d")
+        assert report_axises == "all" or isinstance(report_axises, list)
+        self.method = method
+        self.report_axis = report_axises
+        self.C = C
+        self.reset()
+
+    def reset(self) -> None:
+        self._log: List[np.ndarray] = []
+
+    def add(self, dice_values) -> None:
+        if isinstance(dice_values, torch.Tensor):
+            dice_values = dice_values.detach().cpu().numpy()
+        d = np.asarray(dice_values, dtype=np.float32)
+        if d.ndim == 1:
+            d = d[None, :]
+        assert d.ndim == 2 and d.shape[1] == self.C, d.shape
+        self._log.append(d)
+
+    @property
+    def log(self) -> np.ndarray:
+        if not self._log:
+            return np.zeros((1, self.C), np.float32)
+        return np.concatenate(self._log, axis=0)
+
+    def value(self):
+        log = self.log
+        means = log.mean(0)
+        stds = log.std(0)
+        if self.report_axis == "all":
+            report = log.mean(1)
+        else:
+            report = log[:, self.report_axis].mean(1)
+        return (report.mean(), report.std()), (means, stds)
+
+    def summary(self, detailed: bool = False) -> Dict[str, float]:
+        """{"mDSC", "mVars"}, or with ``detailed`` {"mDSC", "DSC<i>" for the
+        reported classes}."""
+        (mean, std), (cls_means, _) = self.value()
+        if detailed:
+            axes = range(self.C) if self.report_axis == "all" else self.report_axis
+            return {"mDSC": float(mean), **{f"DSC{i}": float(cls_means[i]) for i in axes}}
+        return {"mDSC": float(mean), "mVars": float(std)}
+
+    def detailed_summary(self) -> Dict[str, float]:
+        _, (means, _) = self.value()
+        return {f"DSC{i}": float(means[i]) for i in range(len(means))}
+
+
+class AggregatedMeter:
+    """One summary dict per epoch; ``summary()`` → a pandas DataFrame."""
+
+    def __init__(self) -> None:
+        self.record: List[Dict[str, float]] = []
+
+    def add(self, summary: Dict[str, float]) -> None:
+        self.record.append(dict(summary))
+
+    def summary(self):
+        import pandas as pd
+        return pd.DataFrame(self.record)
+
+    def state_dict(self) -> Dict:
+        return {"record": self.record}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.record = list(sd["record"])
+
+
+class ListAggregatedMeter:
+    """Several AggregatedMeters side by side, their columns prefixed by each
+    meter's name; ``to_csv`` writes them with an ``epoch`` index and four
+    decimals."""
+
+    def __init__(self, names: List[str], meters: List[AggregatedMeter]) -> None:
+        assert len(names) == len(meters)
+        self.names = names
+        self.meters = meters
+
+    def summary(self):
+        import pandas as pd
+        frames = []
+        for name, meter in zip(self.names, self.meters):
+            df = meter.summary()
+            df.columns = [f"{name}_{c}" for c in df.columns]
+            frames.append(df)
+        return pd.concat(frames, axis=1)
+
+    def to_csv(self, path) -> None:
+        self.summary().to_csv(path, index_label="epoch", float_format="%.4f")
+
+    def state_dict(self) -> Dict:
+        return {name: m.state_dict() for name, m in zip(self.names, self.meters)}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        for name, m in zip(self.names, self.meters):
+            m.load_state_dict(sd[name])

@@ -70,3 +70,6 @@ def get_arch(arch: str, kwargs: Dict[str, Any]) -> nn.Module:
 
 
 from .segmentator import Segmentator  # noqa: E402,F401
+
+# dct_tpu's alias of Segmentator (the reference exports both names)
+Model = Segmentator

@@ -131,10 +131,12 @@ class Segmentator:
         self.net.eval()
         return self.net(x.to(self.compute_dtype)).float()
 
-    def predict(self, img: torch.Tensor) -> torch.Tensor:
-        """Eval-mode logits, under ``torch.inference_mode``."""
+    def predict(self, img: torch.Tensor, logit: bool = True) -> torch.Tensor:
+        """Eval-mode logits, or with ``logit`` False their softmax over the
+        last (class) axis, under ``torch.inference_mode``."""
         with torch.inference_mode():
-            return self.apply_eval(img)
+            out = self.apply_eval(img)
+            return out if logit else torch.softmax(out, dim=-1)
 
     def lr(self, epoch: Optional[int] = None) -> float:
         return self.lr_fn(self.epoch if epoch is None else epoch)

@@ -1,7 +1,11 @@
 """Batched affine warps — the on-device augmentation primitive
 (``dct_tpu/ops/warp.py:affine_warp``, nearest and bilinear, and
 ``affine_warp_shear``, the nearest-rounded L·D·U shear warp of the
-Cityscapes augmentations).
+Cityscapes augmentations), and ``make_affine``, which composes one theta.
+
+dct_tpu warps one image by one theta and vmaps that over a batch
+(``affine_warp_batch``); here ``affine_warp`` takes the batch, (B,H,W[,C])
+images with (B,2,3) thetas, and is that batched function.
 
 ``theta`` is a (2,3) matrix per sample mapping *centered output* pixel
 coords (y, x) to *centered input* coords: ``src = theta[:, :2] @ dst +
@@ -12,6 +16,33 @@ even, so a nearest warp picks the same pixels.
 from __future__ import annotations
 
 import torch
+
+
+def make_affine(angle_deg=0.0, zoom_y=1.0, zoom_x=1.0, shift_y=0.0,
+                shift_x=0.0, flip_ud=False, flip_lr=False, device=None
+                ) -> torch.Tensor:
+    """Compose flip/rotate/zoom/shift into one (2,3) float32 output→input
+    matrix, in float32 as dct_tpu composes it. The arguments are Python
+    scalars or 0-d tensors; ``flip_*`` are booleans (signs ±1). ``zoom > 1``
+    zooms in (a crop); ``shift`` is in input pixels, added after the linear
+    part. The matrix lies on ``device`` (``resolve_device``: the card
+    unless the caller asks for the CPU)."""
+    from .. import resolve_device
+    dev = resolve_device(device)
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    angle = torch.deg2rad(f32(angle_deg))
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    one = f32(1.0)
+    sy = torch.where(torch.as_tensor(flip_ud, device=dev), -one, one) / f32(zoom_y)
+    sx = torch.where(torch.as_tensor(flip_lr, device=dev), -one, one) / f32(zoom_x)
+    # rotation in (y, x) convention, then the per-axis scale and flip
+    rot = torch.stack([torch.stack([cos, -sin]), torch.stack([sin, cos])])
+    scale = torch.stack([torch.stack([sy, 0.0 * sy]), torch.stack([0.0 * sx, sx])])
+    t = torch.stack([f32(shift_y), f32(shift_x)])
+    return torch.cat([rot @ scale, t[:, None]], dim=1)
 
 
 def _grid(h: int, w: int, device):

@@ -51,7 +51,7 @@ from ..parallel.shard_cotrain import make_shard_cotrain_epoch
 from ..schedules import get_weight_scheduler
 from ..utils.convert import load_optim_state, stack_optim_states, unstack_optim_state
 from ..utils.general import check_finite_losses, save_images
-from ..utils.logging import ScalarWriter, resume_records, write_metrics_csv
+from ..utils.logging import RateMeter, ScalarWriter, resume_records, write_metrics_csv
 from .steps import (make_cotrain_epoch, make_eval_all_models_step,
                     make_eval_patient_step)
 from .trainer import (DEFAULT_GRP_REGEX, check_device, epoch_generator, make_save_dir,
@@ -99,6 +99,7 @@ class CoTrainer:
         self.is_main = is_main()
         self.save_dir = make_save_dir(save_dir, whole_config, "config.yml",
                                       write=self.is_main)
+        self.rate_meter = RateMeter()     # built, and not read, as in dct_tpu
         self.C = self.seg.arch_dict["num_classes"]
         self.axises = axises if axises is not None else [1, 2, 3]
         self.metricname = metricname

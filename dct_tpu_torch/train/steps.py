@@ -64,15 +64,28 @@ from ..parallel.data_parallel import DataShard
 from ..utils.general import class2one_hot, dice_coef, probs2one_hot
 
 
-def _masked_ce(logits: torch.Tensor, gt: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+def _masked_ce(logits: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
+               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CE over the valid slices of a padded patient bucket: logits (L,H,W,C),
-    gt (L,H,W), mask (L,) float."""
+    gt (L,H,W), mask (L,) float; each pixel weighted by its class's entry
+    of ``weight`` (C,) when given, the sum divided by the weights' sum."""
     logp = torch.log_softmax(logits, dim=-1)
     onehot = gt[..., None] == torch.arange(logits.shape[-1], device=gt.device)
     nll = -torch.sum(torch.where(onehot, logp, 0.0), dim=-1)
-    w = torch.ones_like(nll) * mask[:, None, None]
+    if weight is None:
+        w = torch.ones_like(nll)
+    else:
+        w = torch.sum(torch.where(onehot, weight.to(logits.dtype), 0.0), dim=-1)
+    w = w * mask[:, None, None]
     return torch.sum(nll * w) / torch.clamp_min(torch.sum(w), 1e-12)
+
+
+def _class_weight(loss_weight, device) -> Optional[torch.Tensor]:
+    """The eval CE's class weights as a tensor on the device, made once when
+    a step is built (None: unweighted)."""
+    if loss_weight is None:
+        return None
+    return torch.as_tensor(loss_weight, dtype=torch.float32, device=device)
 
 
 def _dice_rows(logits: torch.Tensor, gt: torch.Tensor, C: int) -> torch.Tensor:
@@ -289,10 +302,11 @@ def _map_dice(pred: torch.Tensor, gt_oh: torch.Tensor, m4: torch.Tensor, C: int)
 
 
 def _patient_metrics(logits: torch.Tensor, gt: torch.Tensor,
-                     gt_oh: torch.Tensor, maskf: torch.Tensor
+                     gt_oh: torch.Tensor, maskf: torch.Tensor,
+                     weight: Optional[torch.Tensor] = None
                      ) -> Dict[str, torch.Tensor]:
     """dice2d (L,C), dice3d (C,) over the valid slices, masked CE."""
-    loss = _masked_ce(logits, gt, maskf.to(logits.dtype))
+    loss = _masked_ce(logits, gt, maskf.to(logits.dtype), weight)
     pred = torch.argmax(torch.softmax(logits, dim=-1), dim=-1)
     dice2d, dice3d = _map_dice(pred, gt_oh, maskf[:, None, None, None], logits.shape[-1])
     return {"dice2d": dice2d, "dice3d": dice3d, "loss": loss}
@@ -308,26 +322,28 @@ def _bucket(img_u8, gt_u8, idx, mask, C):
     return img, gt, class2one_hot(gt, C) * maskf[:, None, None, None], maskf
 
 
-def make_eval_patient_step(seg: Segmentator, C: int) -> Callable:
+def make_eval_patient_step(seg: Segmentator, C: int, loss_weight=None) -> Callable:
     """``step(img_u8, gt_u8, idx (L,), mask (L,))`` → per-slice 2D dice
-    (L,C), whole-volume 3D dice (C,) over the valid slices, masked CE loss,
-    argmax prediction map (L,H,W), as tensors on the device."""
+    (L,C), whole-volume 3D dice (C,) over the valid slices, masked CE loss
+    (class-weighted by ``loss_weight`` (C,) when given), argmax prediction
+    map (L,H,W), as tensors on the device."""
+    weight = _class_weight(loss_weight, seg.device)
 
     @torch.inference_mode()
     def step(img_u8, gt_u8, idx, mask) -> Dict[str, torch.Tensor]:
         img, gt, gt_oh, maskf = _bucket(img_u8, gt_u8, idx, mask, C)
         logits = seg.apply_eval(img)
-        out = _patient_metrics(logits, gt, gt_oh, maskf)
+        out = _patient_metrics(logits, gt, gt_oh, maskf, weight)
         out["pred"] = torch.argmax(logits, dim=-1)
         return out
 
     return step
 
 
-def make_eval_all_step(seg: Segmentator, C: int) -> Callable:
+def make_eval_all_step(seg: Segmentator, C: int, loss_weight=None) -> Callable:
     """One model × all patients: ``make_eval_all_models_step`` with the
     model axis dropped → {dice2d (P,L,C), dice3d (P,C), loss (P,)}."""
-    step_all = make_eval_all_models_step([seg], C)
+    step_all = make_eval_all_models_step([seg], C, loss_weight)
 
     def step(img_u8, gt_u8, indices, masks) -> Dict[str, torch.Tensor]:
         return {k: v[:, 0] for k, v in step_all(img_u8, gt_u8, indices, masks).items()}
@@ -335,18 +351,20 @@ def make_eval_all_step(seg: Segmentator, C: int) -> Callable:
     return step
 
 
-def make_eval_all_models_step(segs: Sequence[Segmentator], C: int) -> Callable:
+def make_eval_all_models_step(segs: Sequence[Segmentator], C: int,
+                              loss_weight=None) -> Callable:
     """All K models × all patients: ``step(img_u8, gt_u8, indices (P,L),
     masks (P,L))`` → {dice2d (P,K,L,C), dice3d (P,K,C), loss (P,K)} on the
-    device. Each patient's gather and one-hot gt are shared by the K
-    models."""
+    device, the loss class-weighted by ``loss_weight`` (C,) when given. Each
+    patient's gather and one-hot gt are shared by the K models."""
+    weight = _class_weight(loss_weight, segs[0].device)
 
     @torch.inference_mode()
     def step(img_u8, gt_u8, indices, masks) -> Dict[str, torch.Tensor]:
         per_patient = []
         for idx, mask in zip(np.asarray(indices), np.asarray(masks)):
             img, gt, gt_oh, maskf = _bucket(img_u8, gt_u8, idx, mask, C)
-            per_model = [_patient_metrics(s.apply_eval(img), gt, gt_oh, maskf)
+            per_model = [_patient_metrics(s.apply_eval(img), gt, gt_oh, maskf, weight)
                          for s in segs]
             per_patient.append({k: torch.stack([m[k] for m in per_model])
                                 for k in per_model[0]})

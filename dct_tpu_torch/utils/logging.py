@@ -1,8 +1,12 @@
-"""Run observability (``dct_tpu/utils/logging.py``): scalar writers and
-the metrics CSV the trainers write and resume.
+"""Run observability (``dct_tpu/utils/logging.py``): scalar writers, a
+throughput meter, an on-demand profiler trace and the metrics CSV the
+trainers write and resume.
 
 * ``ScalarWriter``: JSONL always; TensorBoard events too when
   ``torch.utils.tensorboard`` imports. Epoch granularity only.
+* ``RateMeter``: images/s with exponential smoothing.
+* ``trace_epoch``: a ``torch.profiler`` trace of the wrapped code, written
+  in the TensorBoard profiler's layout.
 * ``write_metrics_csv`` / ``resume_records``: the per-epoch CSV with the
   standard library's ``csv`` (no pandas), in pandas' ``to_csv(
   float_format="%.4f")`` layout: the ``epoch`` index first, floats with four
@@ -12,11 +16,13 @@ the metrics CSV the trainers write and resume.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
+import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -49,6 +55,54 @@ class ScalarWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class RateMeter:
+    """Streaming images/s with exponential smoothing: ``stop(n)`` returns
+    the rate since ``start()`` and folds it into ``rate`` as
+    ``alpha·rate + (1 − alpha)·instant`` (the first reading alone)."""
+
+    def __init__(self, alpha: float = 0.9) -> None:
+        self.alpha = alpha
+        self.rate: Optional[float] = None
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, n_images: int) -> float:
+        assert self._t0 is not None, "call start() first"
+        dt = time.perf_counter() - self._t0
+        inst = n_images / max(dt, 1e-9)
+        self.rate = inst if self.rate is None else (
+            self.alpha * self.rate + (1 - self.alpha) * inst)
+        self._t0 = None
+        return inst
+
+
+@contextlib.contextmanager
+def trace_epoch(logdir: Union[str, Path, None], device=None):
+    """``with trace_epoch("runs/x/trace"): ...`` records a ``torch.profiler``
+    trace of the wrapped code: CPU activity, and CUDA activity when
+    ``device`` resolves to the card (``resolve_device``: the card unless the
+    caller asks for the CPU). On exit the trace is written under ``logdir``
+    as ``<worker>.<time>.pt.trace.json`` (``tensorboard_trace_handler``):
+    view it with TensorBoard's profiler plugin (``tensorboard --logdir``) or
+    open the JSON in Perfetto or ``chrome://tracing``. Yields the profiler
+    (``key_averages()`` for a table). ``logdir`` None records nothing and
+    yields None, as dct_tpu's context does."""
+    if logdir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from .. import resolve_device
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(logdir))) as prof:
+        yield prof
 
 
 def format_4f(v: float) -> str:

@@ -53,6 +53,34 @@ def test_parallel_modules_are_checked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_leftover_modules_are_checked():
+    """The modules of the last slice (the host tools and leftovers) are
+    among the files the no-JAX check scans."""
+    for name in ("utils/logging", "utils/general", "utils/decorators", "data/metainfo",
+                 "data/augment", "data/pipeline", "ops/warp", "adversarial", "metrics",
+                 "datapreprocessing/__init__", "datapreprocessing/slicers",
+                 "datapreprocessing/cityscapes_tools", "postprocessing/plot",
+                 "postprocessing/viewer"):
+        assert f"dct_tpu_torch/{name}.py" in PORT_FILES, name
+
+
+def test_offline_tools_import_without_pandas_or_matplotlib():
+    """The slicers, the Cityscapes tools, the plot and the viewer import
+    where pandas, matplotlib, nibabel and JAX cannot be imported: each
+    imports what it needs inside the function that needs it."""
+    code = ("import sys\n"
+            "for name in ('pandas', 'matplotlib', 'nibabel', 'jax', 'dct_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import dct_tpu_torch.datapreprocessing.slicers\n"
+            "import dct_tpu_torch.datapreprocessing.cityscapes_tools\n"
+            "import dct_tpu_torch.postprocessing.plot\n"
+            "import dct_tpu_torch.postprocessing.viewer\n"
+            "import dct_tpu_torch.metrics\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_imports_with_jax_blocked():
     """Import every module of the port (and chip_smoke) in a fresh process
     in which importing jax, flax, optax or dct_tpu raises."""
@@ -216,6 +244,20 @@ def test_cli_runs_without_pandas(tmp_path, cli):
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert line in proc.stdout
+
+
+def test_trace_epoch_and_make_affine_need_cuda_or_explicit_cpu(no_cuda, tmp_path):
+    """``trace_epoch`` and ``make_affine`` resolve their device as the entry
+    points do: the card unless the caller asks for the CPU."""
+    from dct_tpu_torch.ops.warp import make_affine
+    from dct_tpu_torch.utils.logging import trace_epoch
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with trace_epoch(tmp_path):
+            pass
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_affine(10.0)
+    assert make_affine(10.0, device="cpu").device.type == "cpu"
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("entry", ["summary", "bench"])

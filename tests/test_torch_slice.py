@@ -16,6 +16,10 @@ at iteration 1 one pseudo-label near-tie flips, which moves the FGSM input
 gradient by ~1 % near that pixel and flips the sign of a few pixels; the
 iteration-1 adv loss, model a's update and its adversarial BatchNorm
 statistics carry that, and their tolerances say so.
+
+A second case holds the parallel tests' co-training case at its 16²
+(``parallel/dryrun.py:CASE``) against dct_tpu's compiled epoch, with
+dct_tpu's thetas and float64 logits on both sides.
 """
 import jax
 import jax.numpy as jnp
@@ -33,8 +37,11 @@ from dct_tpu_torch.losses import get_loss_fn
 from dct_tpu_torch.models import Segmentator
 from dct_tpu_torch.models.enet import Enet
 from dct_tpu_torch.models.layers import init_weights_
+from dct_tpu_torch.parallel.dryrun import cotrain_case, max_rel_diff
 from dct_tpu_torch.train.steps import make_cotrain_epoch
 from dct_tpu_torch.utils.convert import params_from_jax, params_from_jax_stacked
+from test_torch_parallel_ref import jax_cotrain, loss_gaps
+from test_torch_parallel_workers import _apply_train_f64
 
 K, B, H, T, N, C = 2, 2, 32, 2, 16, 4
 LR = 1e-3
@@ -326,3 +333,35 @@ def test_init_matches_dct_tpu_distribution(jax_run):
     scales = torch.cat([sd[k] for k in sd if ".bn" in k and k.endswith("weight")])
     assert abs(float(scales.mean()) - 1) < 0.01
     assert abs(float(scales.std()) - 0.02) < 0.005
+
+
+# ---- the 16² case -------------------------------------------------------------
+# The co-training parity case of the parallel tests at its own 16²
+# (``parallel/dryrun.py:CASE``: K = 2, B = Bu = 4, Adam, JSD, FGSM and both
+# augmentations, the fused forward), float64 logits on both sides, the
+# port fed dct_tpu's thetas. At 16² ENet's second pool works on 4×4 maps;
+# the FGSM terms agree there (``test_torch_enet16.py``), and so does the
+# whole epoch: measured 4.0e-8 (sup), 1.3e-8 (jsd) and 1.1e-8 (adv) on the
+# losses, 3.7e-7 (params) and 7.4e-7 (statistics) of scale. Bounds as the
+# data-parallel tests' against dct_tpu (fp32 parameters and rounding).
+CASE16_TOL = {"sup_loss": 1e-6, "jsd_loss": 1e-6, "adv_loss": 1e-6, "params": 1e-5,
+              "stats": 1e-5}
+
+
+@pytest.fixture(scope="module")
+def runs16():
+    ref = jax_cotrain({}, f64_logits=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Segmentator, "apply_train", _apply_train_f64)
+        got = cotrain_case(0, 1, {"compute": "float64", "thetas": ref["thetas"]})
+    return ref, got
+
+
+@pytest.mark.parametrize("quantity", sorted(CASE16_TOL))
+def test_cotrain_16_matches_dct_tpu(runs16, quantity):
+    ref, got = runs16
+    if quantity in ("params", "stats"):
+        gap = max_rel_diff(got["models"], ref["models"], stats=quantity == "stats")
+    else:
+        gap = loss_gaps(ref, got)[quantity]
+    assert gap <= CASE16_TOL[quantity], gap

@@ -22,13 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from dct_tpu.adversarial import VATGenerator as JaxVATGenerator
 from dct_tpu.adversarial import vat_perturbation as jax_vat_perturbation
 from dct_tpu.data.augment import sample_aug_thetas as jax_sample_aug_thetas
 from dct_tpu.data.splits import get_dataset_split as jax_get_dataset_split
 from dct_tpu.losses import get_loss_fn as jax_get_loss_fn
 from dct_tpu.train import VatTrainer as JaxVatTrainer
 from dct_tpu.train.vat import make_vat_epoch as jax_make_vat_epoch
-from dct_tpu_torch.adversarial import vat_perturbation
+from dct_tpu_torch.adversarial import VATGenerator, vat_perturbation
 from dct_tpu_torch.checkpoint import load_checkpoint
 from dct_tpu_torch.data.splits import get_dataset_split
 from dct_tpu_torch.losses import get_loss_fn
@@ -66,19 +67,28 @@ def perturbation(request):
         if request.param == "float64":
             float64_logits(seg, port)
         d = np.asarray(jax.random.normal(key, img.shape, jnp.float32))
-        adv, r_adv, new_bs = jax.jit(lambda p, bs, x: jax_vat_perturbation(
-            seg.apply_train, p, bs, x, key, xi=XI, epsilon=EPS, ip=IP))(
+        # dct_tpu's VATGenerator shim in the same compile: XLA shares its
+        # work with the direct call
+        (adv, r_adv, new_bs), shim = jax.jit(lambda p, bs, x: (
+            jax_vat_perturbation(seg.apply_train, p, bs, x, key, xi=XI, epsilon=EPS, ip=IP),
+            JaxVATGenerator(seg.apply_train, XI, EPS, IP)(p, bs, x, key)[:2]))(
             seg.state["params"], seg.state["batch_stats"], jnp.asarray(img))
         ref = {"adv": np.asarray(adv), "r_adv": np.asarray(r_adv),
-               "stats": params_from_jax({}, to_numpy(new_bs))}
+               "stats": params_from_jax({}, to_numpy(new_bs)),
+               "shim": [np.asarray(t) for t in shim]}
 
     got_adv, got_r = vat_perturbation(port, torch.from_numpy(img), XI, EPS, IP,
                                       d=torch.from_numpy(d))
+    shim_seg = port_segmentator(params, batch_stats)
+    if request.param == "float64":
+        float64_logits(jax_segmentator(params, batch_stats), shim_seg)
+    shim = VATGenerator(shim_seg, XI, EPS, IP)(torch.from_numpy(img), d=torch.from_numpy(d))
     clean_only = port_segmentator(params, batch_stats)
     with torch.no_grad():
         clean_only.apply_train(torch.from_numpy(img))
     return {"logits": request.param, "ref": ref, "adv": got_adv.numpy(),
             "r_adv": got_r.numpy(), "stats": port.net.state_dict(),
+            "shim": [t.numpy() for t in shim], "shim_stats": shim_seg.net.state_dict(),
             "clean_only": clean_only.net.state_dict(),
             "grads": [p.grad for p in port.net.parameters()]}
 
@@ -99,6 +109,31 @@ def test_vat_perturbation_matches_dct_tpu(perturbation):
         a, b = got.reshape(2, -1).astype(np.float64), ref["r_adv"].reshape(2, -1)
         cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
         assert (cos > 1 - 1e-6).all(), cos
+
+
+def test_vat_generator_matches_dct_tpu(perturbation):
+    """The ``VATGenerator`` shims (ip = 1) on the same noise: the port's
+    (adversarial image, r_adv) equal its direct ``vat_perturbation`` to the
+    bit and move the running statistics as it does, in place; dct_tpu's
+    first two outputs equal its direct call. So the shim is held to dct_tpu
+    by ``test_vat_perturbation_matches_dct_tpu``'s bounds, and directly by
+    the float64 one (1e-6 of ε)."""
+    (adv, r_adv), ref = perturbation["shim"], perturbation["ref"]
+    np.testing.assert_array_equal(adv, perturbation["adv"])
+    np.testing.assert_array_equal(r_adv, perturbation["r_adv"])
+    for k, v in perturbation["stats"].items():
+        assert torch.equal(perturbation["shim_stats"][k], v), k
+    np.testing.assert_array_equal(ref["shim"][0], ref["adv"])
+    np.testing.assert_array_equal(ref["shim"][1], ref["r_adv"])
+    if perturbation["logits"] == "float64":
+        np.testing.assert_allclose(r_adv, ref["r_adv"], rtol=0, atol=1e-6 * EPS)
+        np.testing.assert_allclose(adv, ref["adv"], rtol=0, atol=1e-6 * EPS)
+    assert adv.min() >= 0.0 and adv.max() <= 1.0
+
+
+def test_vat_generator_needs_noise_or_generator():
+    with pytest.raises(ValueError, match="generator"):
+        VATGenerator(port_segmentator(*trained()))(torch.zeros(1, H, H, 1))
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["adv", "no_adv"])
